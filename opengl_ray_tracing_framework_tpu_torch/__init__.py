@@ -1,0 +1,70 @@
+"""PyTorch + CUDA port of the progressive Monte-Carlo path tracer.
+
+A second package beside opengl_ray_tracing_framework_tpu (the JAX/Pallas
+reference it is held against), for NVIDIA Hopper. It imports torch and
+never jax. Layout mirrors the JAX package: models/ (host scene pipeline,
+materials, camera), ops/ (shading math, environment, traversal,
+integrator), render.py (the progressive render API), utils/ (config,
+image export, the nvcc build of csrc/).
+
+The forward render runs end to end: every cast goes through the span-sweep
+kernel csrc/sweep.cu (ops/sweep.py), which on a CPU tensor is replaced by
+its plain PyTorch version. Not ported yet: see ROADMAP.md, Queue 1.
+"""
+
+__version__ = "0.1.0"
+
+from .models.camera import Camera
+from .models.material import (
+    MEDIUM_ABSORB,
+    MEDIUM_EMISSIVE,
+    MEDIUM_NONE,
+    MEDIUM_SCATTER,
+    Material,
+    MaterialTable,
+)
+from .models.scene import (
+    Scene,
+    SceneData,
+    build_reference_scene,
+    build_test_scene,
+    camera_from_numpy,
+    scene_from_numpy,
+)
+from .render import (
+    RenderState,
+    finalize,
+    init_render_state,
+    render,
+    render_pass,
+    render_passes,
+    render_progressive,
+    render_radiance,
+)
+from .utils.config import RenderConfig
+
+__all__ = [
+    "Camera",
+    "Material",
+    "MaterialTable",
+    "MEDIUM_NONE",
+    "MEDIUM_ABSORB",
+    "MEDIUM_SCATTER",
+    "MEDIUM_EMISSIVE",
+    "RenderConfig",
+    "RenderState",
+    "Scene",
+    "SceneData",
+    "build_reference_scene",
+    "build_test_scene",
+    "camera_from_numpy",
+    "finalize",
+    "init_render_state",
+    "render",
+    "render_pass",
+    "render_passes",
+    "render_progressive",
+    "render_radiance",
+    "scene_from_numpy",
+    "__version__",
+]

@@ -1,0 +1,234 @@
+"""Wavefront path-tracing integrator, BSDF mode (PyTorch port of
+opengl_ray_tracing_framework_tpu.ops.integrator).
+
+The reference's per-fragment integrator shadingImportanceSampling_BSDF
+(src/shaders/fragment_shader_ray_tracing.glsl:1369-1516) and kernel main
+(glsl:1518-1550), batched over rays. Per bounce:
+  1. next-event estimation toward the HDR environment with a shadow ray
+     and power-heuristic MIS (glsl:1379-1406),
+  2. Sobol-driven BSDF sampling with per-pixel Cranley-Patterson rotation
+     (glsl:1408-1421),
+  3. participating media on refraction: Beer-Lambert ABSORB, EMISSIVE
+     line integral, SCATTER with Henyey-Greenstein phase (glsl:1429-1458),
+  4. one merged shadow + bounce cast; on a miss the MIS-weighted
+     environment (or the gradient sky), on a hit the emissive pickup
+     (glsl:1476-1513).
+The JAX module's documented deviations from the reference (single
+application of f/pdf per interaction, NEE gated on enable_env_map) hold
+here too.
+
+Compaction: each bounce runs only on the rays alive at its start (an
+index of the live lanes, a dynamic shape), and writes their radiance back.
+Exact for the JAX module's reason: a dead lane contributes nothing again,
+so its radiance is final when it dies.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..models.material import MEDIUM_ABSORB, MEDIUM_EMISSIVE, MEDIUM_SCATTER
+from . import disney
+from .envmap import (
+    default_sky_color,
+    env_radiance_pdf_nearest,
+    env_sample_nearest,
+    hdr_color,
+    hdr_pdf,
+    sample_hdr_direction,
+)
+from .intersect import surface_attributes
+from .sampling import (
+    cranley_patterson,
+    phase_hg,
+    rand01,
+    sample_hg,
+    sobol_all_dims,
+    sobol_bounce_uv,
+)
+from .traverse import closest_hit, closest_hit_pair
+
+_EPS_PDF = 1e-10
+
+
+def mis_weight(a, b):
+    """Power heuristic a^2 / (a^2 + b^2) (misMixWeight, glsl:1285-1288)."""
+    t = a * a
+    return t / torch.clamp(t + b * b, min=1e-20)
+
+
+def _safe_rcp(x, eps=_EPS_PDF):
+    return 1.0 / torch.clamp(x, min=eps)
+
+
+def _env_radiance(scene, direction, config):
+    if config.enable_env_map:
+        return hdr_color(scene.hdr_map, direction, scene.env_angle) \
+            * scene.env_intensity
+    return default_sky_color(direction[..., 1])
+
+
+def _env_nee_sample(scene, config, hh, ww, xl1, xl2):
+    """In-loop NEE light sample -> (direction, pdf, radiance): one row
+    fetch from the fused table, or the reference's three GL_LINEAR fetches
+    under config.env_bilinear (SampleHdr glsl:635-646, hdrPdf
+    glsl:1173-1186, hdrColor glsl:1165-1169; only the pdf/radiance lookups
+    add env_angle)."""
+    if config.env_bilinear:
+        l_dir = sample_hdr_direction(scene.hdr_cache, xl1, xl2)
+        pdf = hdr_pdf(scene.hdr_cache, l_dir, scene.env_angle, ww, hh)
+        fr = hdr_color(scene.hdr_map, l_dir, scene.env_angle)
+        return l_dir, pdf, fr
+    return env_sample_nearest(scene.env_fetch, hh, ww, xl1, xl2,
+                              scene.env_angle)
+
+
+def _env_miss_radiance_pdf(scene, config, hh, ww, direction):
+    """Bounce-miss environment radiance + pdf (the MIS pickup site,
+    glsl:1483-1506)."""
+    if config.env_bilinear:
+        fr = hdr_color(scene.hdr_map, direction, scene.env_angle)
+        pdf = hdr_pdf(scene.hdr_cache, direction, scene.env_angle, ww, hh)
+        return fr, pdf
+    return env_radiance_pdf_nearest(scene.env_fetch, hh, ww, direction,
+                                    scene.env_angle)
+
+
+def trace_radiance(scene, origin, direction, pixel_id, frame: int, config):
+    """Path-traced radiance for a batch of primary rays (glsl main,
+    1518-1550). pixel_id: (R,) int64 per-pixel RNG stream ids in
+    [0, 2^32); frame: 1-based progressive sample index. Returns (R, 3)
+    float32 linear radiance."""
+    if not config.enable_bsdf:
+        raise NotImplementedError(
+            "RenderConfig(enable_bsdf=False) selects the legacy BRDF "
+            "integrator, not ported yet (ROADMAP Queue 1: BRDF mode)")
+    hit0 = closest_hit(scene, origin, direction, config)
+    miss_rgb = _env_radiance(scene, direction, config)
+    lo = _bounce_loop_bsdf(scene, origin, direction, hit0, pixel_id, frame,
+                           config)
+    le0 = scene.material_of(hit0.tri).emissive
+    return torch.where(hit0.is_hit[..., None], le0 + lo, miss_rgb)
+
+
+def _bounce(scene, b, frame, sobol_point, config, pid, origin, direction,
+            t, tri, inside, history, lo):
+    """One bounce of glsl:1369-1516 for rays alive at its start. Returns
+    the rays' (lo, history, next origin, next direction, next hit, alive)."""
+    hit_point, n, v, mat = surface_attributes(scene, origin, direction, t,
+                                              tri, inside)
+    hh, ww = scene.hdr_map.shape[0], scene.hdr_map.shape[1]
+
+    # 1. next-event estimation: draw the light sample (its shadow ray is
+    # traced with the bounce ray below)
+    if config.enable_env_map:
+        xl1 = rand01(pid, frame, 8 * b + 0)
+        xl2 = rand01(pid, frame, 8 * b + 1)
+        l_dir, light_pdf, light_fr = _env_nee_sample(
+            scene, config, hh, ww, xl1, xl2)
+        light_fr = light_fr * scene.env_intensity
+        facing = torch.sum(n * l_dir, dim=-1) > 0.0
+
+    # 2. sample the BSDF
+    u, vv = sobol_bounce_uv(sobol_point, b)
+    xi1 = cranley_patterson(u, rand01(pid, frame, 8 * b + 2))
+    xi2 = cranley_patterson(vv, rand01(pid, frame, 8 * b + 3))
+    xi3 = rand01(pid, frame, 8 * b + 4)
+
+    smp = disney.disney_sample(mat, v, n, xi1, xi2, xi3)
+    alive = smp.pdf > _EPS_PDF
+
+    # 3. media on refraction (glsl:1429-1458)
+    refract = alive & smp.is_refract
+    med_absorb = refract & (mat.medium_type == MEDIUM_ABSORB)
+    med_emissive = refract & (mat.medium_type == MEDIUM_EMISSIVE)
+    med_scatter_t = refract & (mat.medium_type == MEDIUM_SCATTER)
+
+    dens = mat.medium_density
+    absorb_mult = torch.exp(-(1.0 - mat.medium_color)
+                            * t[..., None] * dens[..., None])
+    lo = lo + torch.where(
+        med_emissive[..., None],
+        mat.medium_color * (t * dens)[..., None] * history, 0.0)
+
+    scatter_dist = torch.minimum(
+        -torch.log(torch.clamp(xi3, min=1e-12)) * _safe_rcp(dens, 1e-6), t)
+    med_sampled = med_scatter_t & (scatter_dist < t)
+    hg_dir = sample_hg(v, mat.medium_anisotropy, xi1, xi2)
+    hg_pdf = phase_hg(torch.sum(v * hg_dir, dim=-1), mat.medium_anisotropy)
+
+    # throughput & next ray
+    surf_mult = smp.f * _safe_rcp(smp.pdf)[..., None]
+    surf_mult = torch.where(med_absorb[..., None], surf_mult * absorb_mult,
+                            surf_mult)
+    scatter_mult = mat.medium_color * torch.exp(-scatter_dist)[..., None]
+    mult = torch.where(med_sampled[..., None], scatter_mult, surf_mult)
+    new_history = torch.where(alive[..., None], history * mult, history)
+
+    new_dir = torch.where(med_sampled[..., None], hg_dir, smp.direction)
+    # glsl:1450 marches straight through the surface to the scatter point
+    scatter_org = hit_point + direction * scatter_dist[..., None]
+    new_org = torch.where(med_sampled[..., None], scatter_org, hit_point)
+
+    # mixture pdf of the sampled direction, for env MIS (glsl:1466-1474)
+    _, pdf_eval_dir = disney.disney_eval(mat, v, n, new_dir)
+    pdf_for_mis = torch.where(med_sampled, hg_pdf, pdf_eval_dir)
+
+    # 4. shadow + bounce rays in one cast
+    if config.enable_env_map:
+        shadow, nxt = closest_hit_pair(scene, hit_point, l_dir, facing,
+                                       new_org, new_dir, alive, config)
+        vis = facing & ~shadow.is_hit
+        f_eval, pdf_eval = disney.disney_eval(mat, v, n, l_dir)
+        w = mis_weight(light_pdf, pdf_eval)
+        if not config.enable_mis:
+            w = torch.ones_like(w)
+        contrib = (w * _safe_rcp(light_pdf))[..., None] \
+            * history * light_fr * f_eval
+        lo = lo + torch.where(vis[..., None], contrib, 0.0)
+    else:
+        nxt = closest_hit(scene, new_org, new_dir, config, mask=alive)
+    nxt_miss = alive & ~nxt.is_hit
+
+    if config.enable_env_map:
+        env_fr, light_pdf2 = _env_miss_radiance_pdf(
+            scene, config, hh, ww, new_dir)
+        env_fr = env_fr * scene.env_intensity
+        w2 = mis_weight(pdf_for_mis, light_pdf2)
+        if not config.enable_mis:
+            w2 = torch.ones_like(w2)
+        # phase-sampled lanes have no competing NEE: full weight
+        w2 = torch.where(med_sampled, 1.0, w2)
+        lo = lo + torch.where(nxt_miss[..., None],
+                              w2[..., None] * new_history * env_fr, 0.0)
+    else:
+        sky = default_sky_color(new_dir[..., 1])
+        lo = lo + torch.where(nxt_miss[..., None], new_history * sky, 0.0)
+
+    le = scene.material_of(nxt.tri).emissive
+    lo = lo + torch.where((alive & nxt.is_hit)[..., None],
+                          new_history * le, 0.0)
+    return lo, new_history, new_org, new_dir, nxt, alive
+
+
+def _bounce_loop_bsdf(scene, origin, direction, hit0, pixel_id, frame,
+                      config):
+    lo_out = torch.zeros_like(origin)
+    lanes = torch.nonzero(hit0.is_hit).squeeze(1)
+    o, d = origin[lanes], direction[lanes]
+    t, tri, inside = hit0.t[lanes], hit0.tri[lanes], hit0.inside[lanes]
+    history = torch.ones_like(o)
+    lo = torch.zeros_like(o)
+    sobol_point = sobol_all_dims(frame, device=origin.device)
+    for b in range(config.max_bounce):
+        if lanes.numel() == 0:
+            break
+        lo, history, o, d, nxt, alive = _bounce(
+            scene, b, frame, sobol_point, config, pixel_id[lanes], o, d,
+            t, tri, inside, history, lo)
+        lo_out[lanes] = lo
+        keep = torch.nonzero(alive & nxt.is_hit).squeeze(1)
+        lanes, o, d, history, lo = (x[keep] for x in
+                                    (lanes, o, d, history, lo))
+        t, tri, inside = nxt.t[keep], nxt.tri[keep], nxt.inside[keep]
+    return lo_out

@@ -1,0 +1,332 @@
+"""Swept span-list closest hit: the port's traversal, around one kernel.
+
+PyTorch port of opengl_ray_tracing_framework_tpu.ops.sweep. Every cast of
+the forward render (the primary cast and each bounce's merged NEE-shadow
++ bounce cast) comes here.
+
+  host preparation (plain torch, as the JAX module's jnp):
+    1. slab test of every ray against every cluster AABB (cluster_tnear),
+       consumed only through per-ray and per-tile reductions, in chunks
+       of rays so the (rays, clusters) matrix never exists whole;
+    2. a stable coherence sort of the rays (_sort_key): rays that trace
+       nothing (masked off, or overlapping no cluster) go last, live rays
+       group by (nearest candidate cluster, quantized direction);
+    3. per tile of TILE_R sorted rays, the span list: cluster ids in
+       stable ascending order of the tile's minimum entry distance, and
+       nspan = the number the tile overlaps;
+    4. per ray, the pruning cap = nextafter(its farthest finite entry
+       distance): a ray never needs a span beyond its own farthest
+       candidate cluster.
+
+  kernel (sweep: csrc/sweep.cu on a CUDA tensor, sweep_plain on a CPU
+  tensor): per tile, walk the span list nearest first; per span intersect
+  every ray with every triangle of the cluster through the bilinear
+  feature form [A | TN | U | V] = rayfeat (R, 16) . trifeat (16, 4T)
+  (models/clusters.py: four T-column groups, the parallel threshold E in
+  row 10 of group A); keep each ray's minimum t; stop when the next span's
+  tile entry distance is >= every live ray's min(best_t, cap).
+
+Exactness (the JAX module's argument): spans are visited in conservative
+nearest-first order and a skipped span cannot hold a closer hit for any
+ray, so the result is the brute-force closest hit. The tile size, the
+sort and the chunking change only which spans are visited, never the
+answer; only which of two hits at exactly equal t wins can depend on them.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+
+import torch
+
+from .intersect import INF, T_MIN, Hit
+from .sampling import _cross
+
+TILE_R = 128          # rays per kernel tile (= CTA); csrc/sweep.cu agrees
+N_FEAT = 16           # ray feature vector [o, d, o x d, 1, 0 x 6]
+BEST_W = 8            # record [t, slot, inside, cap, anyhit, 0, 0, 0]
+EPS_ROW = 10          # trifeat row carrying E in the A-group columns
+MAX_BLOCK_TRIS = 256  # the kernel's shared-memory span buffer holds 41*T f32
+_DEAD_KEY = 1 << 30   # sort key for rays that trace nothing
+_SLAB_CHUNK = 128 * TILE_R   # rays per slab-test chunk
+
+
+def cluster_tnear(origin, direction, cl_min, cl_max):
+    """Conservative AABB entry distance of each ray to each cluster.
+
+    Returns (R, C) float32: max(t_enter, 0) where the slab test passes
+    (hitAABB semantics, glsl:303-316: visit iff t1 >= t0 and t1 > 0), INF
+    where it misses (schedule.py::cluster_tnear in the JAX package).
+    """
+    small = torch.abs(direction) < 1e-12
+    signed_eps = torch.where(direction < 0, -1e-12, 1e-12).to(direction.dtype)
+    inv = 1.0 / torch.where(small, signed_eps, direction)
+    r, c = origin.shape[0], cl_min.shape[0]
+    t0 = torch.full((r, c), -INF, dtype=torch.float32, device=origin.device)
+    t1 = torch.full((r, c), INF, dtype=torch.float32, device=origin.device)
+    for ax in range(3):
+        near = (cl_min[None, :, ax] - origin[:, None, ax]) * inv[:, None, ax]
+        far = (cl_max[None, :, ax] - origin[:, None, ax]) * inv[:, None, ax]
+        t0 = torch.maximum(t0, torch.minimum(near, far))
+        t1 = torch.minimum(t1, torch.maximum(near, far))
+    visit = (t1 >= t0) & (t1 > 0.0)
+    return torch.where(visit, torch.clamp(t0, min=0.0), INF)
+
+
+def ray_features(origin, direction):
+    """(R, 16) f32 feature vector [o, d, o x d, 1, 0...] per ray."""
+    r = origin.shape[0]
+    return torch.cat([
+        origin, direction, _cross(origin, direction),
+        torch.ones((r, 1), dtype=origin.dtype, device=origin.device),
+        torch.zeros((r, N_FEAT - 10), dtype=origin.dtype,
+                    device=origin.device)], dim=1)
+
+
+def _sort_key(tn, direction, mask):
+    """Coherence sort key from the slab test: major the ray's nearest
+    candidate cluster, minor a 7-bit quantized direction; _DEAD_KEY for
+    rays with no candidate or masked off."""
+    ncand = torch.sum(tn < INF, dim=1)
+    nearest = torch.argmin(tn, dim=1)
+    phi = torch.atan2(direction[:, 2], direction[:, 0])
+    kphi = torch.clamp(((phi * (0.5 / math.pi) + 0.5) * 16).to(torch.int64),
+                       0, 15)
+    kct = torch.clamp(((direction[:, 1] * 0.5 + 0.5) * 8).to(torch.int64),
+                      0, 7)
+    key = nearest * 128 + kphi * 8 + kct
+    return torch.where(mask & (ncand > 0), key, _DEAD_KEY)
+
+
+def _chunked_tnear(origin, direction, mask, cl_min, cl_max):
+    """Yield (slice, masked tn chunk) over _SLAB_CHUNK-ray chunks."""
+    for lo in range(0, origin.shape[0], _SLAB_CHUNK):
+        sl = slice(lo, lo + _SLAB_CHUNK)
+        tn = cluster_tnear(origin[sl], direction[sl], cl_min, cl_max)
+        yield sl, torch.where(mask[sl, None], tn, INF)
+
+
+def _span_lists(origin, direction, mask, cl_min, cl_max):
+    """Per-tile min entry distance (G, C) and per-ray cap (R,) of rays in
+    their sorted order; R is a multiple of TILE_R."""
+    tile_tn, cap = [], []
+    for _, tn in _chunked_tnear(origin, direction, mask, cl_min, cl_max):
+        tile_tn.append(tn.reshape(-1, TILE_R, tn.shape[1]).amin(dim=1))
+        far = torch.amax(torch.where(tn < INF, tn, -INF), dim=1)
+        cap.append(torch.nextafter(far, torch.full_like(far, INF)))
+    return torch.cat(tile_tn), torch.cat(cap)
+
+
+# ---------------------------------------------------------------------------
+# The kernel: hand-written CUDA on the card, plain torch on the CPU
+# ---------------------------------------------------------------------------
+
+
+def sweep_plain(nspan, spans, tile_sorted, rayfeat, best, trifeat):
+    """Plain PyTorch version of csrc/sweep.cu, same inputs and output.
+
+    nspan (G,) i32; spans (G, C) i32 cluster ids, nearest first;
+    tile_sorted (G, C) f32 their tile entry distances; rayfeat (G*TILE_R,
+    16) f32; best (G*TILE_R, 8) f32 records [t, slot, inside, cap, anyhit,
+    ...]; trifeat (C, 16, 4T) f32. Returns the updated records (a new
+    tensor). Vectorised over tiles: span j of every tile still sweeping
+    is one batched matmul, then the kernel's epilogue and stop test.
+    """
+    sweep_plain.calls += 1
+    g, c = spans.shape
+    t_blk = trifeat.shape[2] // 4
+    rf = rayfeat.reshape(g, TILE_R, N_FEAT)
+    best = best.clone().reshape(g, TILE_R, BEST_W)
+    lane = torch.arange(t_blk, device=rayfeat.device)
+    active = torch.nonzero(nspan > 0).squeeze(1)
+    j = 0
+    while active.numel():
+        cid = spans[active, j].long()
+        tf = trifeat[cid]                                   # (n, 16, 4T)
+        ft = torch.bmm(rf[active], tf)                      # (n, TR, 4T)
+        a, tn, u, v = ft.split(t_blk, dim=2)
+        eps = tf[:, EPS_ROW, None, :t_blk]                  # (n, 1, T)
+        not_par = torch.abs(a) > eps
+        s = torch.where(a > 0.0, -1.0, 1.0).to(a.dtype)
+        us = u * s
+        vs = v * s
+        in_tri = (us > 0.0) & (vs > 0.0) & (us + vs < torch.abs(a))
+        t = tn / torch.where(not_par, a, 1.0)
+        valid = not_par & in_tri & (t >= T_MIN)
+        tmat = torch.where(valid, t - 1e-5, INF)            # (n, TR, T)
+        tmin = torch.amin(tmat, dim=2)
+        k = torch.amin(torch.where(tmat <= tmin[..., None], lane, t_blk),
+                       dim=2)
+        a_win = torch.gather(a, 2, torch.clamp(k, max=t_blk - 1)[..., None])
+        rec = best[active]
+        better = (tmin < INF) & (tmin < rec[..., 0])
+        slot = (cid[:, None] * t_blk + k).to(torch.float32)
+        rec[..., 0] = torch.where(better, tmin, rec[..., 0])
+        rec[..., 1] = torch.where(better, slot, rec[..., 1])
+        rec[..., 2] = torch.where(better, (a_win[..., 0] > 0.0).float(),
+                                  rec[..., 2])
+        best[active] = rec
+        # stop test (csrc/sweep.cu): occluded any-hit rays are not live
+        live_t = torch.where((rec[..., 4] > 0.5) & (rec[..., 1] >= 0.0),
+                             -INF, rec[..., 0])
+        thresh = torch.amax(torch.minimum(live_t, rec[..., 3]), dim=1)
+        if j + 1 >= c:
+            break
+        more = (j + 1 < nspan[active]) & (tile_sorted[active, j + 1] < thresh)
+        active = active[more]
+        j += 1
+    return best.reshape(-1, BEST_W)
+
+
+sweep_plain.calls = 0
+
+
+@functools.cache
+def _library():
+    """csrc/sweep.cu, built at first use, with its C signatures declared."""
+    from ..utils import nvcc
+
+    lib = nvcc.load("sweep")
+    lib.sweep_tile_rays.argtypes = []
+    lib.sweep_tile_rays.restype = ctypes.c_int
+    lib.sweep_launch.argtypes = ([ctypes.c_void_p] * 6
+                                 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    lib.sweep_launch.restype = ctypes.c_int
+    if lib.sweep_tile_rays() != TILE_R:
+        raise RuntimeError("csrc/sweep.cu TILE_R differs from ops/sweep.py")
+    return lib
+
+
+def sweep(nspan, spans, tile_sorted, rayfeat, best, trifeat):
+    """The span-sweep kernel: csrc/sweep.cu for CUDA tensors (best is
+    updated in place and returned), sweep_plain for CPU tensors. Same
+    contract as sweep_plain. `sweep.launches` counts kernel launches."""
+    dev = rayfeat.device
+    if dev.type == "cpu":
+        return sweep_plain(nspan, spans, tile_sorted, rayfeat, best, trifeat)
+    if dev.type != "cuda":
+        raise NotImplementedError(f"the sweep kernel has no {dev} version")
+    g, c = spans.shape
+    t_blk = trifeat.shape[2] // 4
+    want = {
+        "nspan": (nspan, torch.int32, (g,)),
+        "spans": (spans, torch.int32, (g, c)),
+        "tile_sorted": (tile_sorted, torch.float32, (g, c)),
+        "rayfeat": (rayfeat, torch.float32, (g * TILE_R, N_FEAT)),
+        "best": (best, torch.float32, (g * TILE_R, BEST_W)),
+        "trifeat": (trifeat, torch.float32, (c, N_FEAT, 4 * t_blk)),
+    }
+    for name, (x, dtype, shape) in want.items():
+        if (x.device != dev or x.dtype != dtype or tuple(x.shape) != shape
+                or not x.is_contiguous() or x.data_ptr() % 16):
+            raise ValueError(
+                f"sweep: {name} must be a contiguous, 16-byte aligned "
+                f"{dtype} tensor of shape {shape} on {dev}; got "
+                f"{x.dtype} {tuple(x.shape)} on {x.device}")
+    if not 1 <= t_blk <= MAX_BLOCK_TRIS:
+        raise ValueError(f"sweep: cluster block of {t_blk} triangles; the "
+                         f"kernel takes at most {MAX_BLOCK_TRIS}")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = _library().sweep_launch(
+            nspan.data_ptr(), spans.data_ptr(), tile_sorted.data_ptr(),
+            rayfeat.data_ptr(), best.data_ptr(), trifeat.data_ptr(),
+            g, c, t_blk, stream)
+    if rc != 0:
+        raise RuntimeError(f"sweep kernel launch failed: cudaError {rc}")
+    sweep.launches += 1
+    return best
+
+
+sweep.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Casts
+# ---------------------------------------------------------------------------
+
+
+def sweep_inputs(scene, origin, direction, mask, anyhit):
+    """Host preparation of one cast: the sweep kernel's arguments
+    (nspan, spans, tile_sorted, rayfeat, best, trifeat) for rays padded
+    to a multiple of TILE_R, and the sort permutation (None when the rays
+    fit one tile) that put them in kernel order."""
+    r_in = origin.shape[0]
+    dev = origin.device
+    pad = (-r_in) % TILE_R
+    if pad:
+        origin = torch.cat([origin, origin.new_zeros((pad, 3))])
+        direction = torch.cat([direction, torch.tensor(
+            [[0.0, 0.0, 1.0]], device=dev).expand(pad, 3)])
+        mask = torch.cat([mask, mask.new_zeros(pad)])
+        anyhit = torch.cat([anyhit, anyhit.new_zeros(pad)])
+    r = origin.shape[0]
+    cl_min, cl_max = scene.cl_aabb_min, scene.cl_aabb_max
+
+    perm = None
+    if r > TILE_R:
+        key = torch.cat([
+            _sort_key(tn, direction[sl], mask[sl])
+            for sl, tn in _chunked_tnear(origin, direction, mask,
+                                         cl_min, cl_max)])
+        perm = torch.sort(key, stable=True).indices
+        origin, direction = origin[perm], direction[perm]
+        mask, anyhit = mask[perm], anyhit[perm]
+
+    tile_tn, cap = _span_lists(origin, direction, mask, cl_min, cl_max)
+    tile_sorted, order = torch.sort(tile_tn, dim=1, stable=True)
+    nspan = torch.sum(tile_sorted < INF, dim=1, dtype=torch.int32)
+
+    best = torch.zeros((r, BEST_W), dtype=torch.float32, device=dev)
+    best[:, 0] = torch.where(mask, INF, -INF)   # masked rays never update
+    best[:, 1] = -1.0
+    best[:, 3] = cap
+    best[:, 4] = anyhit.float()
+    args = (nspan, order.to(torch.int32), tile_sorted.contiguous(),
+            ray_features(origin, direction), best,
+            scene.cl_trifeat.contiguous())
+    return args, perm
+
+
+def _swept(scene, origin, direction, mask, anyhit) -> Hit:
+    args, perm = sweep_inputs(scene, origin, direction, mask, anyhit)
+    best = sweep(*args)
+    if perm is not None:   # back to the callers' order
+        best = torch.empty_like(best).index_copy_(0, perm, best)
+    r_in = origin.shape[0]
+    best = best[:r_in]
+    t = torch.where(mask, best[:, 0], INF)
+    slot = torch.where(mask, best[:, 1].to(torch.int32), -1)
+    slot2tri = scene.cl_slot2tri
+    tri = torch.where(
+        slot >= 0,
+        slot2tri[torch.clamp(slot, 0, slot2tri.shape[0] - 1).long()], -1)
+    return Hit(t=t, tri=tri.to(torch.int32), inside=mask & (best[:, 2] > 0.5))
+
+
+def closest_hit_swept(scene, origin, direction, mask=None,
+                      any_hit: bool = False) -> Hit:
+    """Swept closest (or any) hit against the scene clusters; masked-off
+    rays return Hit(INF, -1, False). any_hit: occlusion semantics, the
+    sweep may stop at any hit (is_hit is the meaningful field)."""
+    r = origin.shape[0]
+    if mask is None:
+        mask = torch.ones(r, dtype=torch.bool, device=origin.device)
+    anyhit = torch.full((r,), any_hit, dtype=torch.bool, device=origin.device)
+    return _swept(scene, origin, direction, mask, anyhit)
+
+
+def closest_hit_swept_pair(scene, o_any, d_any, m_any, o_cls, d_cls, m_cls):
+    """NEE shadow (any-hit) + bounce (closest-hit) rays in one sweep: the
+    kernel reads the per-ray any-hit flag, so both populations share one
+    sort, one slab pass and one launch. Returns (hit_any, hit_cls)."""
+    w = o_any.shape[0]
+    anyhit = torch.cat([
+        torch.ones(w, dtype=torch.bool, device=o_any.device),
+        torch.zeros(o_cls.shape[0], dtype=torch.bool, device=o_any.device)])
+    hit = _swept(scene, torch.cat([o_any, o_cls]), torch.cat([d_any, d_cls]),
+                 torch.cat([m_any, m_cls]), anyhit)
+    return (Hit(hit.t[:w], hit.tri[:w], hit.inside[:w]),
+            Hit(hit.t[w:], hit.tri[w:], hit.inside[w:]))

@@ -1,0 +1,121 @@
+"""PyTorch port, host layer: the port's scene pipeline builds the same
+arrays as the JAX package's, a JAX scene crosses into the port intact, and
+the port never imports jax."""
+
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from opengl_ray_tracing_framework_tpu.models import scene as jscene
+from opengl_ray_tracing_framework_tpu_torch.models import scene as tscene
+from opengl_ray_tracing_framework_tpu_torch.models.material import Material
+
+FIELDS = ("p1", "p2", "p3", "n1", "n2", "n3", "mat_idx", "tri_attr",
+          "bvh_left", "bvh_right", "bvh_count", "bvh_first", "bvh_min",
+          "bvh_max", "cl_aabb_min", "cl_aabb_max", "cl_trifeat",
+          "cl_slot2tri", "hdr_map", "env_fetch", "hdr_cache",
+          "env_intensity", "env_angle")
+
+
+def jax_scene_arrays(data) -> dict:
+    """A JAX SceneData as the numpy dict scene_from_numpy takes."""
+    arrays = {k: np.asarray(v) for k, v in data._asdict().items()
+              if k != "materials"}
+    arrays["materials"] = {k: np.asarray(v) for k, v
+                           in data.materials.mat._asdict().items()}
+    return arrays
+
+
+def jax_camera_arrays(cam) -> dict:
+    return {k: np.asarray(v) for k, v in cam._asdict().items()}
+
+
+def assert_same_scene(port, ref):
+    for f in FIELDS:
+        a = getattr(port, f).cpu().numpy()
+        b = np.asarray(ref[f])
+        assert a.dtype == b.dtype, (f, a.dtype, b.dtype)
+        assert np.array_equal(a, b), f
+    for f in Material._fields:
+        a = getattr(port.materials.mat, f).cpu().numpy()
+        assert np.array_equal(a, ref["materials"][f]), f
+
+
+@pytest.mark.parametrize("cluster_size", [256, 8])
+def test_scene_build_matches_jax(cluster_size):
+    jsc, _ = jscene.build_test_scene(n_sphere_subdiv=2)
+    tsc, _ = tscene.build_test_scene(n_sphere_subdiv=2)
+    ref = jax_scene_arrays(jsc.build(cluster_size=cluster_size))
+    port = tsc.build(cluster_size=cluster_size)
+    assert_same_scene(port, ref)
+
+
+def test_hdr_tables_match_jax():
+    """A non-default environment: the 2:1 gradient map at 128x64."""
+    from opengl_ray_tracing_framework_tpu.models.hdr import make_gradient_hdr
+    env = make_gradient_hdr(128, 64, bright_dir=(0.3, 0.8, 0.2))
+    _, jdata = jscene.build_test_scene(1, env=env)
+    _, tdata = tscene.build_test_scene(1, env=env)
+    assert_same_scene(tdata, jax_scene_arrays(jdata))
+
+
+def test_scene_from_numpy_roundtrip():
+    from opengl_ray_tracing_framework_tpu.models.material import (
+        preset_materials as jpresets)
+    from opengl_ray_tracing_framework_tpu_torch.models.material import (
+        preset_materials as tpresets)
+    _, jdata = jscene.build_test_scene(2, material=jpresets()["tear_glass"])
+    _, tdata = tscene.build_test_scene(2, material=tpresets()["tear_glass"])
+    ref = jax_scene_arrays(jdata)
+    crossed = tscene.scene_from_numpy(ref)
+    assert_same_scene(crossed, ref)
+    assert_same_scene(tdata, ref)
+    assert crossed.materials.mat.medium_type.dtype == torch.int32
+
+
+def test_camera_from_numpy_rays():
+    from opengl_ray_tracing_framework_tpu.models.camera import Camera as JCam
+    jcam = JCam.make(position=(0.3, 0.5, -2.0), yaw=80.0, pitch=-8.0,
+                     zoom=25.0, aspect=2.0)
+    tcam = tscene.camera_from_numpy(jax_camera_arrays(jcam))
+    rng = np.random.default_rng(3)
+    u = rng.random(257, dtype=np.float32)
+    v = rng.random(257, dtype=np.float32)
+    jo, jd = jcam.generate_rays(u, v)
+    to, td = tcam.generate_rays(torch.as_tensor(u), torch.as_tensor(v))
+    np.testing.assert_array_equal(to.numpy(), np.asarray(jo))
+    np.testing.assert_allclose(td.numpy(), np.asarray(jd), rtol=1e-6,
+                               atol=1e-6)
+
+
+def test_reference_scene_missing_assets(tmp_path):
+    with pytest.raises(FileNotFoundError):
+        tscene.build_reference_scene(assets_dir=str(tmp_path))
+
+
+def test_port_never_imports_jax():
+    code = ("import sys, opengl_ray_tracing_framework_tpu_torch as p, "
+            "opengl_ray_tracing_framework_tpu_torch.ops.sweep, "
+            "opengl_ray_tracing_framework_tpu_torch.utils.nvcc; "
+            "assert 'jax' not in sys.modules, sorted(m for m in sys.modules "
+            "if m.startswith('jax')); print('ok')")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120,
+                         cwd=Path(__file__).resolve().parents[1])
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+def test_unported_config_raises():
+    from opengl_ray_tracing_framework_tpu_torch import Camera, RenderConfig
+    from opengl_ray_tracing_framework_tpu_torch.render import render_radiance
+    _, data = tscene.build_test_scene(1)
+    cam = Camera.make(aspect=1.0)
+    for bad in (dict(enable_bsdf=False), dict(use_bvh=False)):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            render_radiance(data, cam, RenderConfig(width=8, height=8,
+                                                    **bad), spp=1)

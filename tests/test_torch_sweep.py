@@ -1,0 +1,194 @@
+"""PyTorch port, the module that holds the kernel: ops/sweep.py (host
+preparation + the span-sweep kernel's plain version, which is what a CPU
+tensor runs) against the JAX sweep (Pallas kernel in interpret mode) and
+both against the brute-force oracle, on the cases of tests/test_sweep.py.
+
+Criterion (tests/test_schedule.py::assert_matches_oracle): hit/miss
+exact, t within rtol/atol 1e-4, the same triangle on >= 99.5% of the
+hits (exact-t ties between duplicate triangles may go either way), and
+the same inside flag where the triangle agrees."""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from opengl_ray_tracing_framework_tpu.models.scene import (
+    build_test_scene as jax_build_test_scene)
+from opengl_ray_tracing_framework_tpu.ops import sweep as jsweep
+from opengl_ray_tracing_framework_tpu.ops.intersect import closest_hit_brute
+from opengl_ray_tracing_framework_tpu.ops.schedule import (
+    cluster_tnear as jax_cluster_tnear)
+from opengl_ray_tracing_framework_tpu.utils.config import RenderConfig
+from opengl_ray_tracing_framework_tpu_torch.models.scene import (
+    scene_from_numpy)
+from opengl_ray_tracing_framework_tpu_torch.ops import intersect as tint
+from opengl_ray_tracing_framework_tpu_torch.ops import sweep as tsweep
+
+from test_torch_host import jax_scene_arrays
+
+INF = 114514.0
+JCFG = RenderConfig(pallas_interpret=True)
+
+
+def _pair(jdata):
+    return jdata, scene_from_numpy(jax_scene_arrays(jdata))
+
+
+@pytest.fixture(scope="module")
+def scenes():
+    _, jdata = jax_build_test_scene(n_sphere_subdiv=2)
+    return _pair(jdata)
+
+
+@pytest.fixture(scope="module")
+def many_cluster_scenes():
+    jsc, _ = jax_build_test_scene(n_sphere_subdiv=3)
+    jdata = jsc.build(cluster_size=8)
+    assert jdata.cl_aabb_min.shape[0] >= 100
+    return _pair(jdata)
+
+
+def random_rays(rng, n, spread=3.0):
+    origin = np.asarray(rng.normal(0, spread, (n, 3)), np.float32)
+    origin[:, 2] -= 1.0
+    d = np.asarray(rng.normal(0, 1, (n, 3)), np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    return origin, d
+
+
+def inside_rays(rng, n):
+    origin = np.asarray(rng.normal(0, 0.4, (n, 3)), np.float32)
+    origin[:, 2] += 3.0   # inside the sphere at z = 3
+    d = np.asarray(rng.normal(0, 1, (n, 3)), np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    return origin, d
+
+
+def np_hit(hit):
+    return tuple(np.asarray(x.cpu() if torch.is_tensor(x) else x)
+                 for x in hit)
+
+
+def assert_hits_agree(got, want, tri_agree=0.995):
+    (gt, gtri, gin), (wt, wtri, win) = np_hit(got), np_hit(want)
+    gh, wh = gtri >= 0, wtri >= 0
+    assert (gh == wh).all(), f"hit/miss differs on {(gh != wh).sum()} rays"
+    both = gh & wh
+    np.testing.assert_allclose(gt[both], wt[both], rtol=1e-4, atol=1e-4)
+    same = gtri[both] == wtri[both]
+    assert same.mean() >= tri_agree, same.mean()
+    assert (gin[both][same] == win[both][same]).all()
+
+
+def three_way(jdata, tdata, o, d, **kw):
+    """Port vs JAX sweep vs the brute-force oracle on one batch."""
+    port = tsweep.closest_hit_swept(tdata, torch.as_tensor(o),
+                                    torch.as_tensor(d), **kw)
+    jkw = dict(kw)
+    if "mask" in jkw:
+        jkw["mask"] = jnp.asarray(jkw["mask"].numpy())
+    ref = jsweep.closest_hit_swept(jdata, jnp.asarray(o), jnp.asarray(d),
+                                   JCFG, interpret=True, **jkw)
+    oracle = closest_hit_brute(jnp.asarray(o), jnp.asarray(d),
+                               jdata.p1, jdata.p2, jdata.p3)
+    return port, ref, oracle
+
+
+def test_cluster_tnear_matches_jax(scenes):
+    jdata, tdata = scenes
+    o, d = random_rays(np.random.default_rng(3), 512)
+    want = np.asarray(jax_cluster_tnear(jnp.asarray(o), jnp.asarray(d),
+                                        jdata.cl_aabb_min, jdata.cl_aabb_max))
+    got = tsweep.cluster_tnear(torch.as_tensor(o), torch.as_tensor(d),
+                               tdata.cl_aabb_min, tdata.cl_aabb_max).numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("case", ["random", "inside"])
+def test_swept_matches_jax_and_oracle(scenes, case):
+    jdata, tdata = scenes
+    rng = np.random.default_rng(11 if case == "random" else 5)
+    o, d = random_rays(rng, 2048) if case == "random" else \
+        inside_rays(rng, 512)
+    port, ref, oracle = three_way(jdata, tdata, o, d)
+    assert_hits_agree(port, oracle)
+    assert_hits_agree(port, ref)
+    assert_hits_agree(ref, oracle)
+
+
+def test_swept_many_clusters(many_cluster_scenes):
+    jdata, tdata = many_cluster_scenes
+    o, d = random_rays(np.random.default_rng(7), 2048)
+    port, ref, oracle = three_way(jdata, tdata, o, d)
+    assert_hits_agree(port, oracle)
+    assert_hits_agree(port, ref)
+
+
+def test_swept_any_hit(many_cluster_scenes):
+    jdata, tdata = many_cluster_scenes
+    o, d = random_rays(np.random.default_rng(13), 1024)
+    port, ref, oracle = three_way(jdata, tdata, o, d, any_hit=True)
+    want = np.asarray(oracle.tri) >= 0
+    assert ((port.tri.numpy() >= 0) == want).all()
+    assert ((np.asarray(ref.tri) >= 0) == want).all()
+
+
+def test_swept_mask(scenes):
+    jdata, tdata = scenes
+    rng = np.random.default_rng(17)
+    o, d = random_rays(rng, 512)
+    mask = torch.as_tensor(rng.random(512) < 0.5)
+    port, ref, _ = three_way(jdata, tdata, o, d, mask=mask)
+    full = tsweep.closest_hit_swept(tdata, torch.as_tensor(o),
+                                    torch.as_tensor(d))
+    m = mask.numpy()
+    assert (port.t.numpy()[~m] == INF).all()
+    assert (port.tri.numpy()[~m] == -1).all()
+    assert not port.inside.numpy()[~m].any()
+    for a, b in zip(np_hit(port), np_hit(full)):
+        np.testing.assert_array_equal(a[m], b[m])
+    assert_hits_agree(port, ref)
+
+
+def test_swept_pair_mixed(many_cluster_scenes):
+    """The per-bounce merged cast: NEE shadow rays (any hit) and bounce
+    rays (closest hit) in one sweep, each population with its own mask."""
+    jdata, tdata = many_cluster_scenes
+    rng = np.random.default_rng(19)
+    oa, da = inside_rays(rng, 640)
+    oc, dc = random_rays(rng, 896)
+    ma, mc = rng.random(640) < 0.7, rng.random(896) < 0.8
+    t = torch.as_tensor
+    p_any, p_cls = tsweep.closest_hit_swept_pair(
+        tdata, t(oa), t(da), t(ma), t(oc), t(dc), t(mc))
+    j = jnp.asarray
+    r_any, r_cls = jsweep.closest_hit_swept_pair(
+        jdata, j(oa), j(da), j(ma), j(oc), j(dc), j(mc), JCFG,
+        interpret=True)
+    o_any = closest_hit_brute(j(oa), j(da), jdata.p1, jdata.p2, jdata.p3)
+    o_cls = closest_hit_brute(j(oc), j(dc), jdata.p1, jdata.p2, jdata.p3)
+    want_any = (np.asarray(o_any.tri) >= 0) & ma
+    assert ((p_any.tri.numpy() >= 0) == want_any).all()
+    assert ((np.asarray(r_any.tri) >= 0) == want_any).all()
+    sel = np.nonzero(mc)[0]
+    pick = lambda h: tuple(np.asarray(x)[sel] for x in np_hit(h))
+    assert_hits_agree(pick(p_cls), pick(o_cls))
+    assert_hits_agree(pick(p_cls), pick(r_cls))
+    assert (p_cls.tri.numpy()[~mc] == -1).all()
+
+
+def test_cpu_tensors_take_the_plain_version(scenes):
+    """A CPU tensor runs sweep_plain and never counts a kernel launch; the
+    records it returns are the brute-force closest hits."""
+    jdata, tdata = scenes
+    o, d = random_rays(np.random.default_rng(23), 1000)
+    launches, calls = tsweep.sweep.launches, tsweep.sweep_plain.calls
+    hit = tsweep.closest_hit_swept(tdata, torch.as_tensor(o),
+                                   torch.as_tensor(d))
+    assert tsweep.sweep.launches == launches
+    assert tsweep.sweep_plain.calls == calls + 1
+    oracle = tint.closest_hit_brute(torch.as_tensor(o), torch.as_tensor(d),
+                                    tdata.p1, tdata.p2, tdata.p3)
+    assert_hits_agree(hit, oracle)
