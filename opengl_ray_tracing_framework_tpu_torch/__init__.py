@@ -7,9 +7,18 @@ materials, camera), ops/ (shading math, environment, traversal,
 integrator), render.py (the progressive render API), utils/ (config,
 image export, the nvcc build of csrc/).
 
-The forward render runs end to end: every cast goes through the span-sweep
-kernel csrc/sweep.cu (ops/sweep.py), which on a CPU tensor is replaced by
-its plain PyTorch version. Not ported yet: see ROADMAP.md, Queue 1.
+The forward render runs end to end for every value of the JAX package's
+forward configuration: BSDF and legacy BRDF integrators, and four tracers
+chosen by RenderConfig: the span sweep (cast_backend="sweep", the default,
+kernel csrc/sweep.cu via ops/sweep.py), the vote tracer
+(cast_backend="schedule", kernel csrc/cluster_intersect.cu via
+ops/cluster_intersect.py and ops/schedule.py), the batched BVH traversal
+(cast_backend="bvh") and the brute-force oracle (use_bvh=False). A kernel
+runs on CUDA tensors; a CPU tensor gets its plain PyTorch version.
+
+Constructors and entry points put their tensors on the card unless the
+caller names a device (device="cpu", as the tests do). Not ported yet:
+gradients, the CLI, checkpoints, multi-device (ROADMAP.md, Queue 1).
 """
 
 __version__ = "0.1.0"

@@ -33,14 +33,15 @@
 
 #include <cuda_runtime.h>
 
+#include "mt_span.cuh"
+
 namespace {
 
-constexpr int TILE_R = 128;     // rays per CTA; must match ops/sweep.py
-constexpr int N_FEAT = 16;      // rayfeat width
-constexpr int BEST_W = 8;       // best-record width
-constexpr int USED_ROWS = 10;   // rayfeat rows 10..15 are always 0
-constexpr float INF_T = 114514.0f;
-constexpr float T_MIN = 0.0005f;
+using mt::BEST_W;
+using mt::INF_T;
+using mt::N_FEAT;
+using mt::TILE_R;       // rays per CTA; must match ops/sweep.py
+using mt::USED_ROWS;
 
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
@@ -49,8 +50,7 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-// smem holds, per span, trifeat rows 0..9 of all four column groups plus
-// row 10 (E) of group A: one contiguous run of 41*T floats.
+// smem holds one span's cluster block (mt_span.cuh: 41*T floats).
 __global__ void __launch_bounds__(TILE_R)
 sweep_kernel(const int* __restrict__ nspan, const int* __restrict__ spans,
              const float* __restrict__ tile_sorted,
@@ -77,56 +77,16 @@ sweep_kernel(const int* __restrict__ nspan, const int* __restrict__ spans,
   const float cap = rec[3];
   const bool anyflag = rec[4] > 0.5f;
 
-  const int row = 4 * t_blk;                  // floats per trifeat row
-  const int n_used = USED_ROWS * row + t_blk;
-  const size_t block = static_cast<size_t>(N_FEAT) * row;
+  const size_t block = static_cast<size_t>(N_FEAT) * 4 * t_blk;
   const int* span_row = spans + static_cast<size_t>(g) * n_clusters;
   const float* tn_row = tile_sorted + static_cast<size_t>(g) * n_clusters;
 
   for (int j = 0; j < limit; ++j) {
     const int cid = span_row[j];
-    const float* src = trifeat + static_cast<size_t>(cid) * block;
     __syncthreads();   // every thread is done reading the previous span
-    const int n4 = n_used / 4;
-    const float4* src4 = reinterpret_cast<const float4*>(src);
-    for (int i = tid; i < n4; i += TILE_R) smem4[i] = src4[i];
-    for (int i = 4 * n4 + tid; i < n_used; i += TILE_R) tf[i] = src[i];
+    mt::load_span(tf, trifeat + static_cast<size_t>(cid) * block, t_blk, tid);
     __syncthreads();
-
-    float tmin = INF_T;
-    int kmin = t_blk;
-    float a_win = 0.0f;
-    const float* eps_row = tf + USED_ROWS * row;
-    for (int k = 0; k < t_blk; ++k) {
-      float a = 0.0f, tn = 0.0f, u = 0.0f, v = 0.0f;
-#pragma unroll
-      for (int i = 0; i < USED_ROWS; ++i) {
-        const float* r = tf + i * row + k;
-        a = fmaf(f[i], r[0], a);
-        tn = fmaf(f[i], r[t_blk], tn);
-        u = fmaf(f[i], r[2 * t_blk], u);
-        v = fmaf(f[i], r[3 * t_blk], v);
-      }
-      const float abs_a = fabsf(a);
-      if (!(abs_a > eps_row[k])) continue;          // parallel (or pad)
-      const float s = a > 0.0f ? -1.0f : 1.0f;
-      const float us = u * s;
-      const float vs = v * s;
-      if (!(us > 0.0f && vs > 0.0f && us + vs < abs_a)) continue;
-      const float t = tn / a;
-      if (!(t >= T_MIN)) continue;
-      const float tm = t - 1e-5f;
-      if (tm < tmin) {   // strict: the lowest lane keeps a tie
-        tmin = tm;
-        kmin = k;
-        a_win = a;
-      }
-    }
-    if (tmin < INF_T && tmin < best_t) {
-      best_t = tmin;
-      best_slot = cid * t_blk + kmin;
-      best_in = a_win > 0.0f ? 1.0f : 0.0f;
-    }
+    mt::intersect_span(tf, f, cid, t_blk, best_t, best_slot, best_in);
 
     // stop test: the next span is needed only if its tile entry distance
     // is below some live ray's min(best_t, cap); occluded any-hit rays
@@ -162,7 +122,7 @@ extern "C" int sweep_launch(const int* nspan, const int* spans,
                             int n_clusters, int t_blk, void* stream) {
   if (n_tiles > 0) {
     const size_t smem_bytes =
-        static_cast<size_t>(USED_ROWS * 4 * t_blk + t_blk) * sizeof(float);
+        static_cast<size_t>(mt::span_floats(t_blk)) * sizeof(float);
     sweep_kernel<<<n_tiles, TILE_R, smem_bytes,
                    static_cast<cudaStream_t>(stream)>>>(
         nspan, spans, tile_sorted, rayfeat, best, trifeat, n_clusters, t_blk);

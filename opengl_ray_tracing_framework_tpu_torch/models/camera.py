@@ -21,6 +21,8 @@ from typing import NamedTuple
 
 import torch
 
+from ..utils.config import resolve_device
+
 
 def _norm(x):
     return torch.sqrt(torch.sum(x * x, dim=-1))
@@ -35,7 +37,9 @@ class Camera(NamedTuple):
 
     @staticmethod
     def make(position=(0.0, 0.0, 7.0), yaw=-87.78, pitch=-14.0, zoom=30.0,
-             aspect=2.0, device="cpu") -> "Camera":
+             aspect=2.0, device=None) -> "Camera":
+        """A camera on the card unless a device is named."""
+        device = resolve_device(device)
         f = lambda x: torch.as_tensor(x, dtype=torch.float32, device=device)
         return Camera(position=f(position), yaw=f(yaw), pitch=f(pitch),
                       zoom=f(zoom), aspect=f(aspect))

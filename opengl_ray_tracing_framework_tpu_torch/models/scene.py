@@ -23,6 +23,7 @@ from .camera import Camera
 from .clusters import build_clusters
 from .hdr import build_env_fetch, build_hdr_cache, load_hdr, make_gradient_hdr
 from .material import Material, MaterialTable, preset_materials
+from ..utils.config import resolve_device
 
 DEFAULT_ASSETS_DIR = os.environ.get("ORTF_ASSETS", "resources")
 
@@ -74,13 +75,15 @@ class SceneData:
         return self.materials.gather(self.tri_attr[18, safe].long())
 
 
-def scene_from_numpy(arrays: Mapping, device="cpu") -> SceneData:
+def scene_from_numpy(arrays: Mapping, device=None) -> SceneData:
     """SceneData from numpy arrays named as the SceneData fields.
 
     arrays["materials"] maps each Material field name to its (M, ...)
     array. This is how a scene built by the JAX package (its SceneData
     fields and MaterialTable.mat fields, as numpy) crosses into the port.
+    device=None is the card (utils.config.default_device).
     """
+    device = resolve_device(device)
     mats = arrays["materials"]
     table = MaterialTable(mat=Material(*(
         torch.tensor(np.asarray(mats[f]), device=device)
@@ -90,8 +93,10 @@ def scene_from_numpy(arrays: Mapping, device="cpu") -> SceneData:
         for f in dataclasses.fields(SceneData) if f.name != "materials"})
 
 
-def camera_from_numpy(arrays: Mapping, device="cpu") -> Camera:
-    """Camera from numpy arrays named as the Camera fields."""
+def camera_from_numpy(arrays: Mapping, device=None) -> Camera:
+    """Camera from numpy arrays named as the Camera fields, on the card
+    unless a device is named."""
+    device = resolve_device(device)
     return Camera(*(
         torch.tensor(np.asarray(arrays[f], np.float32), device=device)
         for f in Camera._fields))
@@ -133,7 +138,7 @@ class Scene:
 
     def build(self, leaf_size: int = 8, bvh_method: str = "sah",
               env_intensity: float = 1.0, env_angle: float = 0.0,
-              cluster_size: int = 256, device="cpu") -> SceneData:
+              cluster_size: int = 256, device=None) -> SceneData:
         if not self._tris:
             raise ValueError("scene has no objects")
         parts = [np.concatenate([t[k] for t in self._tris])
@@ -204,7 +209,7 @@ def build_reference_scene(objects=("floor", "loong"),
                           assets_dir: str = DEFAULT_ASSETS_DIR,
                           hdr_name: str = DEFAULT_HDR,
                           leaf_size: int = 8,
-                          device="cpu") -> tuple[Scene, SceneData]:
+                          device=None) -> tuple[Scene, SceneData]:
     """The reference's built-in scene: floor gets the `plane` preset, every
     other object shares the `current_material` slot (Scene.h:111-162).
     Raises FileNotFoundError when an object's file is missing."""
@@ -237,7 +242,7 @@ def build_reference_scene(objects=("floor", "loong"),
 def build_test_scene(n_sphere_subdiv: int = 1,
                      material: Material | None = None,
                      env: np.ndarray | None = None,
-                     device="cpu") -> tuple[Scene, SceneData]:
+                     device=None) -> tuple[Scene, SceneData]:
     """Procedural scene (floor quad + icosphere); no external assets.
     n_sphere_subdiv=6 gives 81,922 triangles, the loong-100k scale."""
     presets = preset_materials()

@@ -1,5 +1,5 @@
-"""Disney-principled BSDF: evaluation and sampling (PyTorch port of the BSDF
-half of opengl_ray_tracing_framework_tpu.ops.disney).
+"""Disney-principled BSDF and the legacy 3-lobe BRDF: evaluation and
+sampling (PyTorch port of opengl_ray_tracing_framework_tpu.ops.disney).
 
 - lobe weights                    CalculateBSDFLobePdfs   glsl:537-550
 - diffuse + sheen + subsurface    EvalDiffuse             glsl:925-948
@@ -8,6 +8,8 @@ half of opengl_ray_tracing_framework_tpu.ops.disney).
 - clearcoat (GTR1)                EvalClearcoat           glsl:986-1000
 - combined eval                   DisneyEval              glsl:1002-1067
 - combined sample                 DisneySample            glsl:1070-1161
+- BRDF mode: lobe pdfs, eval, sample (enableBSDF = false)  glsl:520-533,
+                                                  836-921, 789-833
 
 Every lobe is evaluated for every ray and the result selected, with safe
 denominators so unselected lanes carry no NaN/Inf. The documented
@@ -23,9 +25,11 @@ import torch
 
 from .microfacet import (
     INV_PI,
+    calculate_tint,
     dielectric_fresnel,
     disney_fresnel,
     gtr1,
+    gtr2,
     gtr2_aniso,
     luminance,
     mix,
@@ -43,8 +47,11 @@ from .sampling import (
     onb,
     reflect,
     refract,
+    sample_cosine_hemisphere_world,
     sample_ggx_vndf,
     sample_gtr1,
+    sample_gtr1_world,
+    sample_gtr2_world,
     to_local,
     to_world,
 )
@@ -327,3 +334,110 @@ def disney_sample(mat, v_world, n, r1, r2, r3):
     fcos = f * torch.abs(l_local[..., 2])[..., None]
     return BsdfSample(f=fcos, direction=l_world, pdf=pdf,
                       is_refract=pick_refr)
+
+
+# Legacy BRDF mode (enableBSDF = false): 3-lobe Disney BRDF
+
+
+def brdf_lobe_pdfs(mat):
+    """Diffuse/specular/clearcoat selection probabilities (glsl:520-533)."""
+    r_diffuse = 1.0 - mat.metallic
+    r_specular = torch.ones_like(mat.metallic)
+    r_clearcoat = (1.0 - mat.metallic) * 0.25 * mat.clearcoat
+    inv = 1.0 / torch.clamp(r_diffuse + r_specular + r_clearcoat, min=_EPS)
+    return r_diffuse * inv, r_specular * inv, r_clearcoat * inv
+
+
+def brdf_evaluate(mat, v, n, l, x, y):
+    """Disney BRDF (world frame, tangents x/y) + mixture pdf
+    (BRDF_Evaluate, glsl:836-921). Returns (f, pdf); f does not include the
+    |cos| factor (the BRDF-mode integrator multiplies it explicitly).
+    Lanes below the horizon or with a degenerate l.h return (0, _EPS)."""
+    ndotl = _dot(n, l)
+    ndotv = _dot(n, v)
+    h = _normalize(l + v)
+    ndoth = _dot(n, h)
+    valid = ((ndotl >= _COS_EPS) & (ndotv >= _COS_EPS)
+             & (torch.abs(_dot(l, h)) > _COS_EPS))
+
+    ndotl = _mask1(valid, ndotl)
+    ndotv = _mask1(valid, ndotv)
+    ldoth = _mask1(valid, _dot(l, h))
+
+    cdlin = mat.base_color
+    ctint = calculate_tint(cdlin)
+    white = torch.ones_like(ctint)
+    cspec = mat.specular[..., None] * mix(white, ctint,
+                                          mat.specular_tint[..., None])
+    cspec0 = mix(0.08 * cspec, cdlin, mat.metallic[..., None])
+    csheen = mix(white, ctint, mat.sheen_tint[..., None])
+
+    fd90 = 0.5 + 2.0 * sqr(ldoth) * mat.roughness
+    fl = schlick_fresnel(ndotl)
+    fv = schlick_fresnel(ndotv)
+    fd = mix(1.0, fd90, fl) * mix(1.0, fd90, fv)
+
+    fss90 = sqr(ldoth) * mat.roughness
+    fss = mix(1.0, fss90, fl) * mix(1.0, fss90, fv)
+    ss = 1.25 * (fss * (1.0 / torch.clamp(ndotl + ndotv, min=_COS_EPS) - 0.5)
+                 + 0.5)
+
+    fh = schlick_fresnel(ldoth)
+    alpha = torch.clamp(sqr(mat.roughness), min=0.001)
+    ds_iso = gtr2(ndoth, alpha)
+    gs_iso = (smith_g_ggx(ndotl, mat.roughness)
+              * smith_g_ggx(ndotv, mat.roughness))
+
+    ax, ay = mat.alpha_xy()
+    ds_aniso = gtr2_aniso(ndoth, _dot(h, x), _dot(h, y), ax, ay)
+    gs_aniso = (smith_g_ggx_aniso(ndotl, _dot(l, x), _dot(l, y), ax, ay)
+                * smith_g_ggx_aniso(ndotv, _dot(v, x), _dot(v, y), ax, ay))
+    aniso = mat.anisotropic > 0.0
+    ds = torch.where(aniso, ds_aniso, ds_iso)
+    gs = torch.where(aniso, gs_aniso, gs_iso)
+    fs = mix(cspec0, torch.ones_like(cspec0), fh[..., None])
+
+    dr = gtr1(ndoth, mix(0.1, 0.001, 1.0 - mat.clearcoat_gloss))
+    fr = mix(0.04, 1.0, fh)
+    gr = smith_g_ggx(ndotl, 0.25) * smith_g_ggx(ndotv, 0.25)
+
+    f_sheen = fh[..., None] * mat.sheen[..., None] * csheen
+
+    diffuse = (INV_PI * mix(fd, ss, mat.subsurface)[..., None] * cdlin
+               + f_sheen)
+    denom = 1.0 / (4.0 * ndotv * ndotl)
+    specular = gs[..., None] * fs * ds[..., None] * denom[..., None]
+    clearcoat = (0.25 * gr * fr * dr * mat.clearcoat * denom)[..., None] \
+        * torch.ones(3, dtype=ndotl.dtype, device=ndotl.device)
+
+    p_diff, p_spec, p_coat = brdf_lobe_pdfs(mat)
+    pdf_diffuse = ndotl * INV_PI
+    pdf_specular = ds * ndoth / (4.0 * ldoth)
+    pdf_clearcoat = dr * ndoth / (4.0 * ldoth)
+    pdf = (p_diff * pdf_diffuse + p_spec * pdf_specular
+           + p_coat * pdf_clearcoat)
+    pdf = torch.clamp(pdf, min=_EPS)
+
+    f = (1.0 - mat.metallic)[..., None] * diffuse + specular + clearcoat
+    return (torch.where(valid[..., None], f, 0.0),
+            torch.where(valid, pdf, _EPS))
+
+
+def sample_brdf(mat, v, n, r1, r2, r3):
+    """Sample the 3-lobe BRDF mixture (SampleBRDF, glsl:789-833). Returns a
+    world-space direction; its pdf comes from brdf_evaluate."""
+    p_diff, _, p_coat = brdf_lobe_pdfs(mat)
+    alpha_gtr1 = mix(0.1, 0.001, mat.clearcoat_gloss)
+    alpha_gtr2 = torch.clamp(sqr(mat.roughness), min=0.001)
+
+    cdf0 = p_diff
+    cdf1 = cdf0 + p_coat
+
+    l_diff = sample_cosine_hemisphere_world(r1, r2, n)
+    l_coat = sample_gtr1_world(r1, r2, v, n, alpha_gtr1)
+    l_spec = sample_gtr2_world(r1, r2, v, n, alpha_gtr2)
+
+    pick_diff = r3 <= cdf0
+    pick_coat = (~pick_diff) & (r3 <= cdf1)
+    return torch.where(pick_diff[..., None], l_diff,
+                       torch.where(pick_coat[..., None], l_coat, l_spec))

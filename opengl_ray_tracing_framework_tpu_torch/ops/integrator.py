@@ -1,5 +1,5 @@
-"""Wavefront path-tracing integrator, BSDF mode (PyTorch port of
-opengl_ray_tracing_framework_tpu.ops.integrator).
+"""Wavefront path-tracing integrator, BSDF and legacy BRDF modes (PyTorch
+port of opengl_ray_tracing_framework_tpu.ops.integrator).
 
 The reference's per-fragment integrator shadingImportanceSampling_BSDF
 (src/shaders/fragment_shader_ray_tracing.glsl:1369-1516) and kernel main
@@ -15,7 +15,10 @@ The reference's per-fragment integrator shadingImportanceSampling_BSDF
      (glsl:1476-1513).
 The JAX module's documented deviations from the reference (single
 application of f/pdf per interaction, NEE gated on enable_env_map) hold
-here too.
+here too. RenderConfig(enable_bsdf=False) selects the 3-lobe BRDF
+integrator (shadingImportanceSampling, glsl:1290-1366): no media, an
+explicit |cos| factor, and the power heuristic applied whatever
+enable_mis says, as the reference does in that mode.
 
 Compaction: each bounce runs only on the rays alive at its start (an
 index of the live lanes, a dynamic shape), and writes their radiance back.
@@ -40,6 +43,7 @@ from .envmap import (
 from .intersect import surface_attributes
 from .sampling import (
     cranley_patterson,
+    onb,
     phase_hg,
     rand01,
     sample_hg,
@@ -99,14 +103,11 @@ def trace_radiance(scene, origin, direction, pixel_id, frame: int, config):
     1518-1550). pixel_id: (R,) int64 per-pixel RNG stream ids in
     [0, 2^32); frame: 1-based progressive sample index. Returns (R, 3)
     float32 linear radiance."""
-    if not config.enable_bsdf:
-        raise NotImplementedError(
-            "RenderConfig(enable_bsdf=False) selects the legacy BRDF "
-            "integrator, not ported yet (ROADMAP Queue 1: BRDF mode)")
     hit0 = closest_hit(scene, origin, direction, config)
     miss_rgb = _env_radiance(scene, direction, config)
-    lo = _bounce_loop_bsdf(scene, origin, direction, hit0, pixel_id, frame,
-                           config)
+    bounce = _bounce if config.enable_bsdf else _bounce_brdf
+    lo = _bounce_loop(bounce, scene, origin, direction, hit0, pixel_id,
+                      frame, config)
     le0 = scene.material_of(hit0.tri).emissive
     return torch.where(hit0.is_hit[..., None], le0 + lo, miss_rgb)
 
@@ -211,8 +212,77 @@ def _bounce(scene, b, frame, sobol_point, config, pid, origin, direction,
     return lo, new_history, new_org, new_dir, nxt, alive
 
 
-def _bounce_loop_bsdf(scene, origin, direction, hit0, pixel_id, frame,
-                      config):
+def _bounce_brdf(scene, b, frame, sobol_point, config, pid, origin,
+                 direction, t, tri, inside, history, lo):
+    """One bounce of the legacy BRDF integrator (glsl:1290-1366) for rays
+    alive at its start; same contract as _bounce. enable_mis is not
+    consulted: the reference's BRDF mode applies the power heuristic
+    unconditionally in the NEE (glsl:1310-1322) and in the bounce-miss
+    pickup (glsl:1345-1352)."""
+    hit_point, n, v, mat = surface_attributes(scene, origin, direction, t,
+                                              tri, inside)
+    tangent, bitangent = onb(n)
+    hh, ww = scene.hdr_map.shape[0], scene.hdr_map.shape[1]
+
+    if config.enable_env_map:
+        xl1 = rand01(pid, frame, 8 * b + 0)
+        xl2 = rand01(pid, frame, 8 * b + 1)
+        l_dir_nee, light_pdf, light_fr = _env_nee_sample(
+            scene, config, hh, ww, xl1, xl2)
+        light_fr = light_fr * scene.env_intensity
+        facing = torch.sum(n * l_dir_nee, dim=-1) > 0.0
+
+    u, vv = sobol_bounce_uv(sobol_point, b)
+    xi1 = cranley_patterson(u, rand01(pid, frame, 8 * b + 2))
+    xi2 = cranley_patterson(vv, rand01(pid, frame, 8 * b + 3))
+    xi3 = rand01(pid, frame, 8 * b + 4)
+
+    l_dir = disney.sample_brdf(mat, v, n, xi1, xi2, xi3)
+    f_r, pdf_brdf = disney.brdf_evaluate(mat, v, n, l_dir, tangent,
+                                         bitangent)
+    ndotl = torch.abs(torch.sum(n * l_dir, dim=-1))
+    alive = pdf_brdf > _EPS_PDF
+    mult = f_r * (ndotl * _safe_rcp(pdf_brdf))[..., None]
+    new_history = torch.where(alive[..., None], history * mult, history)
+
+    # shadow + bounce rays in one cast
+    if config.enable_env_map:
+        shadow, nxt = closest_hit_pair(scene, hit_point, l_dir_nee, facing,
+                                       hit_point, l_dir, alive, config)
+        vis = facing & ~shadow.is_hit
+        f_eval, pdf_eval = disney.brdf_evaluate(mat, v, n, l_dir_nee,
+                                                tangent, bitangent)
+        ndotl_nee = torch.abs(torch.sum(n * l_dir_nee, dim=-1))
+        w = mis_weight(light_pdf, pdf_eval)
+        contrib = (w * ndotl_nee * _safe_rcp(light_pdf))[..., None] \
+            * history * light_fr * f_eval
+        lo = lo + torch.where(vis[..., None], contrib, 0.0)
+    else:
+        nxt = closest_hit(scene, hit_point, l_dir, config, mask=alive)
+    nxt_miss = alive & ~nxt.is_hit
+
+    if config.enable_env_map:
+        env_fr, light_pdf2 = _env_miss_radiance_pdf(
+            scene, config, hh, ww, l_dir)
+        env_fr = env_fr * scene.env_intensity
+        w2 = mis_weight(pdf_brdf, light_pdf2)
+        lo = lo + torch.where(nxt_miss[..., None],
+                              w2[..., None] * new_history * env_fr, 0.0)
+    else:
+        sky = default_sky_color(l_dir[..., 1])
+        lo = lo + torch.where(nxt_miss[..., None], new_history * sky, 0.0)
+
+    le = scene.material_of(nxt.tri).emissive
+    lo = lo + torch.where((alive & nxt.is_hit)[..., None],
+                          new_history * le, 0.0)
+    return lo, new_history, hit_point, l_dir, nxt, alive
+
+
+def _bounce_loop(bounce, scene, origin, direction, hit0, pixel_id, frame,
+                 config):
+    """max_bounce bounces of `bounce` (_bounce or _bounce_brdf), each on
+    the lanes still alive; returns the (R, 3) radiance gathered after the
+    primary hit."""
     lo_out = torch.zeros_like(origin)
     lanes = torch.nonzero(hit0.is_hit).squeeze(1)
     o, d = origin[lanes], direction[lanes]
@@ -223,7 +293,7 @@ def _bounce_loop_bsdf(scene, origin, direction, hit0, pixel_id, frame,
     for b in range(config.max_bounce):
         if lanes.numel() == 0:
             break
-        lo, history, o, d, nxt, alive = _bounce(
+        lo, history, o, d, nxt, alive = bounce(
             scene, b, frame, sobol_point, config, pixel_id[lanes], o, d,
             t, tri, inside, history, lo)
         lo_out[lanes] = lo

@@ -9,7 +9,7 @@ Traversal returns only (t, triangle index, inside flag); shading
 attributes are recomputed from the winning triangle id
 (surface_attributes), which separates the discrete winner from the
 continuous, differentiable quantities. closest_hit_brute is the oracle the
-cluster sweep is tested against.
+other tracers are tested against, and the tracer of use_bvh=False.
 """
 
 from __future__ import annotations
@@ -71,6 +71,17 @@ def ray_triangle(origin, direction, p1, p2, p3):
     hit = in_tri & ~parallel & (t >= T_MIN)
     t_out = torch.where(hit, t - 1e-5, INF)
     return hit, t_out, inside
+
+
+def ray_aabb(origin, inv_direction, aa, bb):
+    """Slab test in the reference's convention (glsl:303-316): the entry
+    distance t0 when the box is ahead, the exit distance t1 when the origin
+    is inside, -1 on a miss; traversal reads it as "visit if > 0"."""
+    f = (bb - origin) * inv_direction
+    n = (aa - origin) * inv_direction
+    t1 = torch.amin(torch.maximum(f, n), dim=-1)
+    t0 = torch.amax(torch.minimum(f, n), dim=-1)
+    return torch.where(t1 >= t0, torch.where(t0 > 0.0, t0, t1), -1.0)
 
 
 def ray_aabb_visit(origin, inv_direction, aa, bb):

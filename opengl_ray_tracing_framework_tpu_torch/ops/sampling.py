@@ -12,7 +12,8 @@ Sobol dimensions (2b, 2b+1) drive bounce b, padded mod 8 for b >= 4, each
 bounce decorrelated per pixel by a Cranley-Patterson shift (glsl:590-620,
 772-785). Direction samplers: cosine hemisphere (glsl:650-685), GTR1
 half-vector (glsl:716-729), Heitz VNDF GGX (glsl:751-769),
-Henyey-Greenstein (glsl:1195-1222).
+Henyey-Greenstein (glsl:1195-1222), and the BRDF mode's world-space
+samplers (uniform sphere, GTR1 / GTR2 reflection, glsl:687-749).
 """
 
 from __future__ import annotations
@@ -103,7 +104,7 @@ def _compute_sobol_table() -> np.ndarray:
 SOBOL_TABLE = _compute_sobol_table()
 
 
-def sobol_all_dims(index: int, device="cpu") -> torch.Tensor:
+def sobol_all_dims(index: int, device) -> torch.Tensor:
     """All 8 Sobol dimensions for integer sample `index` (Gray-code order,
     glsl:598-620). Returns (8,) float32 in [0, 1)."""
     g = int(index) & _MASK32
@@ -159,6 +160,18 @@ def onb(n):
     return t, b
 
 
+def onb_hemi(n):
+    """Frame used by toNormalHemisphere in the BRDF path (glsl:663-669):
+    T = normalize(N x helper); B = normalize(N x T)."""
+    cond = (torch.abs(n[..., 0]) > 0.999)[..., None]
+    helper = torch.where(
+        cond, torch.tensor([0.0, 0.0, 1.0], dtype=n.dtype, device=n.device),
+        torch.tensor([1.0, 0.0, 0.0], dtype=n.dtype, device=n.device))
+    t = _normalize(_cross(n, helper))
+    b = _normalize(_cross(n, t))
+    return t, b
+
+
 def to_world(t, b, n, v):
     """Local (x=t, y=b, z=n) -> world (glsl:508-511)."""
     return v[..., 0:1] * t + v[..., 1:2] * b + v[..., 2:3] * n
@@ -180,6 +193,46 @@ def cosine_sample_hemisphere(r1, r2):
     y = r * torch.sin(phi)
     z = safe_sqrt(1.0 - x * x - y * y)
     return torch.stack([x, y, z], dim=-1)
+
+
+def sample_cosine_hemisphere_world(r1, r2, n):
+    """Cosine hemisphere about world normal n (glsl:673-685)."""
+    t, b = onb_hemi(n)
+    return to_world(t, b, n, cosine_sample_hemisphere(r1, r2))
+
+
+def uniform_sample_sphere(r1, r2):
+    """Uniform sphere (glsl:687-693)."""
+    z = 1.0 - 2.0 * r1
+    r = safe_sqrt(1.0 - z * z)
+    phi = TWO_PI * r2
+    return torch.stack([r * torch.cos(phi), r * torch.sin(phi), z], dim=-1)
+
+
+def _reflect_about_half(cos_t, phi, v, n):
+    """Reflect v about the half-vector at polar angle acos(cos_t), azimuth
+    phi in n's hemisphere frame (the tail of glsl:697-749)."""
+    sin_t = safe_sqrt(1.0 - cos_t * cos_t)
+    h_local = torch.stack([sin_t * torch.cos(phi), sin_t * torch.sin(phi),
+                           cos_t], dim=-1)
+    t, b = onb_hemi(n)
+    return reflect(-v, to_world(t, b, n, h_local))
+
+
+def sample_gtr2_world(r1, r2, v, n, alpha):
+    """GTR2 (GGX) reflection direction about world normal n (glsl:732-749),
+    the BRDF mode's specular sampler."""
+    cos_t = torch.sqrt((1.0 - r2) / (1.0 + (sqr(alpha) - 1.0) * r2))
+    return _reflect_about_half(cos_t, TWO_PI * r1, v, n)
+
+
+def sample_gtr1_world(r1, r2, v, n, alpha):
+    """GTR1 reflection direction about world normal n (glsl:697-714), the
+    BRDF mode's clearcoat sampler."""
+    a2 = sqr(alpha)
+    cos_t = torch.sqrt((1.0 - torch.pow(a2, 1.0 - r2))
+                       / torch.clamp(1.0 - a2, min=1e-12))
+    return _reflect_about_half(cos_t, TWO_PI * r1, v, n)
 
 
 def sample_gtr1(roughness, r1, r2):

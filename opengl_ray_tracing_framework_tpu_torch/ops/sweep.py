@@ -124,6 +124,38 @@ def _span_lists(origin, direction, mask, cl_min, cl_max):
 # ---------------------------------------------------------------------------
 
 
+def intersect_span_plain(rf, trifeat, cid, rec):
+    """One span of the cluster kernels in plain torch (csrc/mt_span.cuh):
+    ray tiles rf (n, TR, 16) against the cluster blocks trifeat[cid] (cid
+    (n,) int64), folded into the tiles' records rec (n, TR, 8) in place:
+    [t, slot, inside] are lowered where the span holds a strictly closer
+    hit; the lowest lane wins inside a span."""
+    t_blk = trifeat.shape[2] // 4
+    lane = torch.arange(t_blk, device=rf.device)
+    tf = trifeat[cid]                                   # (n, 16, 4T)
+    ft = torch.bmm(rf, tf)                              # (n, TR, 4T)
+    a, tn, u, v = ft.split(t_blk, dim=2)
+    eps = tf[:, EPS_ROW, None, :t_blk]                  # (n, 1, T)
+    not_par = torch.abs(a) > eps
+    s = torch.where(a > 0.0, -1.0, 1.0).to(a.dtype)
+    us = u * s
+    vs = v * s
+    in_tri = (us > 0.0) & (vs > 0.0) & (us + vs < torch.abs(a))
+    t = tn / torch.where(not_par, a, 1.0)
+    valid = not_par & in_tri & (t >= T_MIN)
+    tmat = torch.where(valid, t - 1e-5, INF)            # (n, TR, T)
+    tmin = torch.amin(tmat, dim=2)
+    k = torch.amin(torch.where(tmat <= tmin[..., None], lane, t_blk), dim=2)
+    a_win = torch.gather(a, 2, torch.clamp(k, max=t_blk - 1)[..., None])
+    better = (tmin < INF) & (tmin < rec[..., 0])
+    slot = (cid[:, None] * t_blk + k).to(torch.float32)
+    rec[..., 0] = torch.where(better, tmin, rec[..., 0])
+    rec[..., 1] = torch.where(better, slot, rec[..., 1])
+    rec[..., 2] = torch.where(better, (a_win[..., 0] > 0.0).float(),
+                              rec[..., 2])
+    return rec
+
+
 def sweep_plain(nspan, spans, tile_sorted, rayfeat, best, trifeat):
     """Plain PyTorch version of csrc/sweep.cu, same inputs and output.
 
@@ -133,40 +165,22 @@ def sweep_plain(nspan, spans, tile_sorted, rayfeat, best, trifeat):
     ...]; trifeat (C, 16, 4T) f32. Returns the updated records (a new
     tensor). Vectorised over tiles: span j of every tile still sweeping
     is one batched matmul, then the kernel's epilogue and stop test.
+    `sweep_plain.visited` keeps the last call's (G,) count of spans each
+    tile walked before its stop test ended the walk: the work the kernel
+    does on the same inputs.
     """
     sweep_plain.calls += 1
     g, c = spans.shape
-    t_blk = trifeat.shape[2] // 4
     rf = rayfeat.reshape(g, TILE_R, N_FEAT)
     best = best.clone().reshape(g, TILE_R, BEST_W)
-    lane = torch.arange(t_blk, device=rayfeat.device)
     active = torch.nonzero(nspan > 0).squeeze(1)
+    visited = torch.zeros(g, dtype=torch.int64, device=spans.device)
+    sweep_plain.visited = visited
     j = 0
     while active.numel():
-        cid = spans[active, j].long()
-        tf = trifeat[cid]                                   # (n, 16, 4T)
-        ft = torch.bmm(rf[active], tf)                      # (n, TR, 4T)
-        a, tn, u, v = ft.split(t_blk, dim=2)
-        eps = tf[:, EPS_ROW, None, :t_blk]                  # (n, 1, T)
-        not_par = torch.abs(a) > eps
-        s = torch.where(a > 0.0, -1.0, 1.0).to(a.dtype)
-        us = u * s
-        vs = v * s
-        in_tri = (us > 0.0) & (vs > 0.0) & (us + vs < torch.abs(a))
-        t = tn / torch.where(not_par, a, 1.0)
-        valid = not_par & in_tri & (t >= T_MIN)
-        tmat = torch.where(valid, t - 1e-5, INF)            # (n, TR, T)
-        tmin = torch.amin(tmat, dim=2)
-        k = torch.amin(torch.where(tmat <= tmin[..., None], lane, t_blk),
-                       dim=2)
-        a_win = torch.gather(a, 2, torch.clamp(k, max=t_blk - 1)[..., None])
-        rec = best[active]
-        better = (tmin < INF) & (tmin < rec[..., 0])
-        slot = (cid[:, None] * t_blk + k).to(torch.float32)
-        rec[..., 0] = torch.where(better, tmin, rec[..., 0])
-        rec[..., 1] = torch.where(better, slot, rec[..., 1])
-        rec[..., 2] = torch.where(better, (a_win[..., 0] > 0.0).float(),
-                                  rec[..., 2])
+        visited[active] += 1
+        rec = intersect_span_plain(rf[active], trifeat,
+                                   spans[active, j].long(), best[active])
         best[active] = rec
         # stop test (csrc/sweep.cu): occluded any-hit rays are not live
         live_t = torch.where((rec[..., 4] > 0.5) & (rec[..., 1] >= 0.0),
@@ -181,6 +195,7 @@ def sweep_plain(nspan, spans, tile_sorted, rayfeat, best, trifeat):
 
 
 sweep_plain.calls = 0
+sweep_plain.visited = None
 
 
 @functools.cache
@@ -195,7 +210,8 @@ def _library():
                                  + [ctypes.c_int] * 3 + [ctypes.c_void_p])
     lib.sweep_launch.restype = ctypes.c_int
     if lib.sweep_tile_rays() != TILE_R:
-        raise RuntimeError("csrc/sweep.cu TILE_R differs from ops/sweep.py")
+        raise RuntimeError(
+            "csrc/mt_span.cuh TILE_R differs from ops/sweep.py")
     return lib
 
 

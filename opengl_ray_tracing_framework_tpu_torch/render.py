@@ -27,7 +27,7 @@ from .models.scene import SceneData
 from .ops import tonemap
 from .ops.integrator import trace_radiance
 from .ops.sampling import rand01
-from .utils.config import RenderConfig
+from .utils.config import RenderConfig, resolve_device
 
 BLOCK = 32  # pixel-block side: rays are traced in 32x32-block order
 
@@ -40,7 +40,9 @@ class RenderState:
     n_samples: int        # the reference's camera.LoopNum
 
 
-def init_render_state(config: RenderConfig, device="cpu") -> RenderState:
+def init_render_state(config: RenderConfig, device=None) -> RenderState:
+    """An empty accumulator, on the card unless a device is named."""
+    device = resolve_device(device)
     return RenderState(
         accum=torch.zeros((config.height, config.width, 3),
                           dtype=torch.float32, device=device),

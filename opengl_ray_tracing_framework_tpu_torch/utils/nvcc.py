@@ -2,8 +2,9 @@
 
 Each kernel is a .cu file with a plain C interface, compiled by nvcc for
 sm_90a into build/torch_kernels/ beside the package (a directory git
-ignores), named by a hash of the source and flags so an edited source is
-rebuilt, and loaded with ctypes. Nothing here runs at import time.
+ignores), named by a hash of every file of csrc/ (the kernels share
+headers) and of the flags so an edited source or header is rebuilt, and
+loaded with ctypes. Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -37,8 +38,10 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sorted(CSRC.glob("*.cu*")):
+        digest.update(src.name.encode() + b"\0" + src.read_bytes())
+    digest = digest.hexdigest()
     return BUILD_DIR / f"{name}_{digest[:16]}.so"
 
 

@@ -48,9 +48,9 @@ def assert_same_scene(port, ref):
 @pytest.mark.parametrize("cluster_size", [256, 8])
 def test_scene_build_matches_jax(cluster_size):
     jsc, _ = jscene.build_test_scene(n_sphere_subdiv=2)
-    tsc, _ = tscene.build_test_scene(n_sphere_subdiv=2)
+    tsc, _ = tscene.build_test_scene(n_sphere_subdiv=2, device="cpu")
     ref = jax_scene_arrays(jsc.build(cluster_size=cluster_size))
-    port = tsc.build(cluster_size=cluster_size)
+    port = tsc.build(cluster_size=cluster_size, device="cpu")
     assert_same_scene(port, ref)
 
 
@@ -59,7 +59,7 @@ def test_hdr_tables_match_jax():
     from opengl_ray_tracing_framework_tpu.models.hdr import make_gradient_hdr
     env = make_gradient_hdr(128, 64, bright_dir=(0.3, 0.8, 0.2))
     _, jdata = jscene.build_test_scene(1, env=env)
-    _, tdata = tscene.build_test_scene(1, env=env)
+    _, tdata = tscene.build_test_scene(1, env=env, device="cpu")
     assert_same_scene(tdata, jax_scene_arrays(jdata))
 
 
@@ -69,9 +69,10 @@ def test_scene_from_numpy_roundtrip():
     from opengl_ray_tracing_framework_tpu_torch.models.material import (
         preset_materials as tpresets)
     _, jdata = jscene.build_test_scene(2, material=jpresets()["tear_glass"])
-    _, tdata = tscene.build_test_scene(2, material=tpresets()["tear_glass"])
+    _, tdata = tscene.build_test_scene(2, material=tpresets()["tear_glass"],
+                                       device="cpu")
     ref = jax_scene_arrays(jdata)
-    crossed = tscene.scene_from_numpy(ref)
+    crossed = tscene.scene_from_numpy(ref, device="cpu")
     assert_same_scene(crossed, ref)
     assert_same_scene(tdata, ref)
     assert crossed.materials.mat.medium_type.dtype == torch.int32
@@ -81,7 +82,7 @@ def test_camera_from_numpy_rays():
     from opengl_ray_tracing_framework_tpu.models.camera import Camera as JCam
     jcam = JCam.make(position=(0.3, 0.5, -2.0), yaw=80.0, pitch=-8.0,
                      zoom=25.0, aspect=2.0)
-    tcam = tscene.camera_from_numpy(jax_camera_arrays(jcam))
+    tcam = tscene.camera_from_numpy(jax_camera_arrays(jcam), device="cpu")
     rng = np.random.default_rng(3)
     u = rng.random(257, dtype=np.float32)
     v = rng.random(257, dtype=np.float32)
@@ -94,12 +95,14 @@ def test_camera_from_numpy_rays():
 
 def test_reference_scene_missing_assets(tmp_path):
     with pytest.raises(FileNotFoundError):
-        tscene.build_reference_scene(assets_dir=str(tmp_path))
+        tscene.build_reference_scene(assets_dir=str(tmp_path), device="cpu")
 
 
 def test_port_never_imports_jax():
     code = ("import sys, opengl_ray_tracing_framework_tpu_torch as p, "
             "opengl_ray_tracing_framework_tpu_torch.ops.sweep, "
+            "opengl_ray_tracing_framework_tpu_torch.ops.schedule, "
+            "opengl_ray_tracing_framework_tpu_torch.ops.cluster_intersect, "
             "opengl_ray_tracing_framework_tpu_torch.utils.nvcc; "
             "assert 'jax' not in sys.modules, sorted(m for m in sys.modules "
             "if m.startswith('jax')); print('ok')")
@@ -110,12 +113,43 @@ def test_port_never_imports_jax():
     assert out.stdout.strip() == "ok"
 
 
-def test_unported_config_raises():
+def test_entry_points_default_to_the_card():
+    """Every constructor and entry point takes device=None and resolves it
+    to the card; nothing tests for a GPU and carries on on the CPU."""
+    import inspect
+
+    from opengl_ray_tracing_framework_tpu_torch import (
+        Camera, init_render_state)
+    from opengl_ray_tracing_framework_tpu_torch.utils import config
+
+    assert config.default_device() == torch.device("cuda")
+    assert config.resolve_device(None) == torch.device("cuda")
+    assert config.resolve_device("cpu") == torch.device("cpu")
+    assert "is_available" not in inspect.getsource(config)
+    for fn in (tscene.scene_from_numpy, tscene.camera_from_numpy,
+               tscene.Scene.build, tscene.build_test_scene,
+               tscene.build_reference_scene, Camera.make,
+               init_render_state):
+        assert inspect.signature(fn).parameters["device"].default is None, fn
+
+
+@pytest.mark.parametrize("kw", [
+    dict(enable_bsdf=False), dict(use_bvh=False), dict(cast_backend="bvh"),
+    dict(cast_backend="schedule")], ids=lambda kw: "-".join(
+        f"{k}={v}" for k, v in kw.items()))
+def test_every_forward_config_renders(kw):
     from opengl_ray_tracing_framework_tpu_torch import Camera, RenderConfig
     from opengl_ray_tracing_framework_tpu_torch.render import render_radiance
-    _, data = tscene.build_test_scene(1)
-    cam = Camera.make(aspect=1.0)
-    for bad in (dict(enable_bsdf=False), dict(use_bvh=False)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            render_radiance(data, cam, RenderConfig(width=8, height=8,
-                                                    **bad), spp=1)
+    _, data = tscene.build_test_scene(1, device="cpu")
+    cam = Camera.make(aspect=1.0, device="cpu")
+    img = render_radiance(data, cam, RenderConfig(
+        width=8, height=8, max_bounce=2, **kw), spp=1)
+    assert img.shape == (8, 8, 3) and img.dtype == torch.float32
+    assert torch.isfinite(img).all() and img.mean() > 0
+
+
+def test_bad_cast_backend_is_refused():
+    from opengl_ray_tracing_framework_tpu_torch import RenderConfig
+    for bad in (dict(cast_backend="pallas"), dict(sched_topk=0)):
+        with pytest.raises(ValueError):
+            RenderConfig(**bad).validate()

@@ -36,8 +36,9 @@ def scenes():
     _, jdata = build_test_scene(2, material=preset_materials()["tear_glass"])
     jcam = JCamera.make(position=(0.0, 0.5, -2.0), yaw=90.0, pitch=-8.0,
                         zoom=30.0, aspect=1.0)
-    return (jdata, jcam, scene_from_numpy(jax_scene_arrays(jdata)),
-            camera_from_numpy(jax_camera_arrays(jcam)))
+    return (jdata, jcam,
+            scene_from_numpy(jax_scene_arrays(jdata), device="cpu"),
+            camera_from_numpy(jax_camera_arrays(jcam), device="cpu"))
 
 
 def assert_images_agree(img, ref):

@@ -33,7 +33,7 @@ JCFG = RenderConfig(pallas_interpret=True)
 
 
 def _pair(jdata):
-    return jdata, scene_from_numpy(jax_scene_arrays(jdata))
+    return jdata, scene_from_numpy(jax_scene_arrays(jdata), device="cpu")
 
 
 @pytest.fixture(scope="module")
