@@ -7,9 +7,10 @@ Run from the repository root. It fails (exit code != 0, no result line)
 when torch sees no CUDA device, and when anything below fails:
 
  1. device: the card's name and power limit (nvidia-smi);
- 2. build: nvcc compiles csrc/sweep.cu (the span-sweep kernel, K1) and
-    csrc/cluster_intersect.cu (the cluster-intersect kernel, K2), both
-    started together;
+ 2. build: nvcc compiles every source of csrc/ (sweep.cu, the span-sweep
+    kernel K1; cluster_intersect.cu, the cluster-intersect kernel K2; the
+    four probe kernels probe_copy, probe_gather, probe_smem, probe_stream),
+    all started together;
  3. K1 against its plain version on the card, at the main path's shapes:
     the 81,922-triangle procedural scene (loong-100k's scale), a
     65,536-ray primary cast and the first bounce's merged NEE-shadow +
@@ -35,12 +36,44 @@ when torch sees no CUDA device, and when anything below fails:
  9. cast_backend="bvh" and use_bvh=False at 128x64, 1 spp against the
     sweep image (kernel-free tracers, host loops).
 
+10. the probe kernels against their plain versions at the probes' own
+    shapes, by exact equality (they copy, add and gather; the streamed sums
+    are of integer-valued floats, exact in any order; with random floats
+    they are held to rtol 1e-5), each with its kernel, plain and library
+    time and its bytes bound. Kernel and library times are device times
+    with the inputs coming from HBM (launches of one CUDA graph rotate
+    over enough copies of the inputs to evict each from L2 before its
+    turn comes again), which is what the bound assumes: a time below the
+    bound fails the run. The time with the inputs left in L2 is printed
+    beside it and goes nowhere else;
+11. the probes as a user runs them (probes/launch_overhead.py, gather.py,
+    card_perf.py, kernel_build.py): microseconds per CTA, lookups per
+    second from global and shared memory, the shared-memory ceiling (the
+    228 KB request must be refused and nothing below it), GB/s of the span
+    copy per CTA and in aggregate, torch's sorts and gathers, cold nvcc
+    builds into a temporary directory with first and steady launches, and
+    the ladder host prep / kernel alone / casts / batch / pass;
+12. the gradient path: material_grad at full width (1024x512, 8 bounces,
+    65,536 rays per batch) against a target rendered with another sphere
+    material, one warm-up and one timed step fenced by a host copy of the
+    gradients: loss and every gradient finite, one nonzero, the forward
+    pass's count of K1 launches and not one more (the backward launches no
+    kernel), no plain call; camera_grad and geometry_grad at 128x64; card
+    against CPU gradients at 128x64, 2 spp (loss to rtol 1e-4, every
+    gradient leaf to 5e-3 of its largest entry, the camera's scalar
+    leaves to 2e-2: same hits, float order differs; camera and geometry
+    at 2 bounces, where the gradients are well-conditioned); material_grad at 256x256, 8 bounces for brown_glass and
+    white; one central finite difference of a base_color entry (within
+    25%: detached sampling sees no lobe flips).
+
 Each kernel's bound is the least time the card could take for the work
 this run's inputs need: the larger of its FP32 operations over the card's
 CUDA-core peak and its bytes (each input read once, each output written
 once) over the HBM rate (NVIDIA's H100 SXM data sheet: 67 TFLOP/s FP32,
-3.35 TB/s). Neither kernel has one PyTorch call that computes the same
-function, so library_ms is null.
+3.35 TB/s). Neither K1 nor K2 has one PyTorch call that computes the same
+function, so their library_ms is null; the probe kernels have one each
+(an add of a slice, index_select, embedding_bag), timed here and used
+nowhere in the port.
 
 It prints one line of numbers per phase, then a JSON line describing the
 kernels, then {"ok": true, "device": {...}} as the last line. --profile
@@ -52,7 +85,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -64,6 +96,8 @@ PEAK_FP32_FLOPS = 67e12     # H100 SXM, FP32 outside the tensor cores
 PEAK_HBM_BYTES = 3.35e12    # H100 SXM, HBM3
 FLOPS_PER_PAIR = 80         # 40 FMAs per ray x triangle (csrc/mt_span.cuh)
 PORT = "opengl_ray_tracing_framework_tpu_torch"
+EXPECTED_KERNELS = {"sweep", "cluster_intersect", "probe_copy",
+                    "probe_gather", "probe_smem", "probe_stream"}
 
 
 def fail(msg: str) -> None:
@@ -73,17 +107,8 @@ def fail(msg: str) -> None:
 def cuda_ms(fn, repeats=REPEATS) -> float:
     """Mean milliseconds of fn() over `repeats` runs, by CUDA events, after
     one warm-up run."""
-    import torch
-    fn()
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(repeats):
-        fn()
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / repeats
+    from opengl_ray_tracing_framework_tpu_torch import probes
+    return probes.cuda_ms(fn, repeats)
 
 
 def compare_records(got, want, slot2tri, label, min_hit_agree=0.9999):
@@ -186,6 +211,356 @@ def check_image(label, img):
     return mean
 
 
+def probe_phases(scene, camera, config):
+    """Phases 10 and 11. Returns the probe kernels' entries of the kernels
+    line (without their launch counts) and the counts of phase 11."""
+    import torch
+    import torch.nn.functional as F
+    from opengl_ray_tracing_framework_tpu_torch import probes
+    from opengl_ray_tracing_framework_tpu_torch.probes import (
+        card_perf, gather, kernel_build, launch_overhead)
+
+    dev = scene.device
+    entries = {}
+
+    def compare(name, label, kernel, plain, library, inputs, nbytes,
+                replaces, rtol=0.0, library_inputs=None,
+                library_is_same=True):
+        """Hold kernel(*inputs) against plain(*inputs) (exactly, or to
+        rtol), time both and the one-call library(*library_inputs) (None:
+        there is none), and record the case as the kernel's entry: the
+        last case of a kernel is the one the kernels line reports. The
+        kernel's and the library's times are device times with the inputs
+        coming from HBM (probes.hbm_ms), as the bound assumes; the time
+        with the inputs left in L2 is printed on this line only."""
+        if library_inputs is None:
+            library_inputs = inputs
+        got, want = kernel(*inputs), plain(*inputs)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        ok = torch.equal(got, want) if rtol == 0.0 \
+            else torch.allclose(got, want, rtol=rtol, atol=0.0)
+        if not ok:
+            fail(f"{name} {label}: kernel and plain version differ "
+                 f"(max |d| {err:.3g})")
+        if library is not None and library_is_same and not torch.allclose(
+                library(*library_inputs).reshape(want.shape).float(), want,
+                rtol=1e-5):
+            fail(f"{name} {label}: the library call computes another "
+                 "function")
+        ms = probes.hbm_ms(kernel, inputs)
+        warm_ms = probes.graph_ms(lambda: kernel(*inputs))
+        plain_ms = cuda_ms(lambda: plain(*inputs), 5)
+        library_ms = probes.hbm_ms(library, library_inputs) \
+            if library is not None else None
+        bound_ms = nbytes / PEAK_HBM_BYTES * 1e3
+        print(f"{name} {label}: max |d| {err:.3g} | kernel {ms * 1e3:.2f} "
+              f"us (inputs left in L2: {warm_ms * 1e3:.2f} us), plain "
+              f"{plain_ms * 1e3:.2f} us, library "
+              + (f"{library_ms * 1e3:.2f} us" if library is not None
+                 else "none")
+              + f", bound {bound_ms * 1e3:.4f} us by bytes ({nbytes} B)")
+        if ms < bound_ms:
+            fail(f"{name} {label}: {ms * 1e3:.2f} us is below the bound of "
+                 f"{bound_ms * 1e3:.2f} us: the inputs did not come from "
+                 "HBM")
+        worst = max(err, entries.get(name, {}).get("max_abs_err", 0.0))
+        entries[name] = {
+            "name": name, "route": "cuda",
+            "source": f"{PORT}/csrc/{name}.cu", "replaces": replaces,
+            "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": "bytes",
+            "library_ms": library_ms}
+
+    # 10. each probe kernel against its plain version
+    n_rows = launch_overhead.N_ROWS
+    rayfeat, best = launch_overhead.make_inputs(dev)
+    for tile, with_rows in ((8192, False), (128, False), (128, True)):
+        extra = launch_overhead.make_span_rows(dev, n_rows, tile) \
+            if with_rows else ()
+        compare(
+            "probe_copy", f"{n_rows} rows, tile {tile}, "
+            f"{'span rows' if with_rows else 'no span rows'}",
+            lambda *x: launch_overhead.probe_copy(x[0], x[1], tile, *x[2:]),
+            lambda *x: launch_overhead.probe_copy_plain(x[0], x[1], tile),
+            launch_overhead.library_copy, (rayfeat, best, *extra),
+            launch_overhead.copy_bytes(
+                n_rows, tile, launch_overhead.N_CLUSTERS if with_rows else 0),
+            "exp/grid_overhead.py:52")
+
+    n_idx = 1 << 22
+    for label, n_table, shape, cols, kw in (
+            ("8 chained lookups, (4096, 128) table (library: one "
+             "torch.gather step)", 4096, (4096, 128), 128, dict(steps=8)),
+            ("4096-entry table staged in shared memory", 4096, (n_idx,),
+             None, dict(staged=True)),
+            ("4096-entry table from global memory", 4096, (n_idx,), None, {}),
+            ("2^26-entry table (256 MiB) from global memory", 1 << 26,
+             (n_idx,), None, {})):
+        table, idx = gather.make_inputs(dev, n_table, shape, cols=cols)
+        chained = "steps" in kw
+        compare(
+            "probe_gather", f"{label}, {idx.numel()} indices",
+            lambda t, i: gather.probe_gather(t, i, **kw),
+            lambda t, i: gather.probe_gather_plain(t, i, **kw),
+            (lambda t, i: torch.gather(t, 0, i)) if chained
+            else (lambda t, i: torch.index_select(t, 0, i)),
+            (table, idx), gather.gather_bytes(idx.numel()),
+            "exp/pallas_gather_probe.py:46",
+            library_inputs=(table, idx.long()) if chained else None,
+            library_is_same=not chained)
+
+    compare(
+        "probe_smem", "227 KB of dynamic shared memory (reservation "
+        "included)",
+        lambda: card_perf.probe_smem(227 * 1024, dev),
+        lambda: card_perf.probe_smem_plain(227 * 1024, dev), None, (),
+        card_perf.LANES * 4, "exp/pallas_perf_probe.py:36")
+
+    for integer, n_ctas in ((False, card_perf.N_SMS), (True, 1),
+                            (True, card_perf.N_SMS)):
+        table, starts = card_perf.make_stream_inputs(dev, n_ctas,
+                                                     integer=integer)
+        bag = starts.long()[..., None] + torch.arange(
+            card_perf.BLOCK_ROWS, device=dev)
+        bag = bag.reshape(n_ctas, -1)
+        compare(
+            "probe_stream", f"{n_ctas} CTA(s) x 64 blocks of (128, 128), "
+            f"{'integer-valued' if integer else 'random'} floats",
+            card_perf.probe_stream, card_perf.probe_stream_plain,
+            lambda t, b: F.embedding_bag(b, t, mode="sum"), (table, starts),
+            # the function's inputs once: the table, the starts, the sums
+            table.numel() * 4 + starts.numel() * 4 + n_ctas * 512,
+            "exp/pallas_perf_probe.py:129", rtol=0.0 if integer else 1e-5,
+            library_inputs=(table, bag))
+
+    # 11. the probes as a user runs them; counts set to 0 just before
+    wrappers = {"probe_copy": launch_overhead.probe_copy,
+                "probe_gather": gather.probe_gather,
+                "probe_smem": card_perf.probe_smem,
+                "probe_stream": card_perf.probe_stream}
+    for w in wrappers.values():
+        w.launches = 0
+    t0 = time.perf_counter()
+    launch_overhead.run(dev)
+    gather.run(dev)
+    perf = card_perf.run(dev)
+    largest, refused, limit = perf["smem"]
+    if (largest, refused) != (227, 228):
+        fail(f"shared memory: largest block {largest} KB, refused "
+             f"{refused} KB; expected 227 and 228 on this card")
+    kernel_build.run_builds(dev)
+    kernel_build.run_ladder(scene, camera, config)
+    counts = {name: w.launches for name, w in wrappers.items()}
+    print(f"probes: all four modules in {time.perf_counter() - t0:.1f} s | "
+          f"launches {counts}")
+    for name, n in counts.items():
+        if n <= 0:
+            fail(f"the probes launched no {name} kernel")
+    return entries, counts
+
+
+def grad_phases(ortf, scene, camera, config, k1_per_pass):
+    """Phase 12: the gradient path on the card."""
+    import numpy as np
+    import torch
+    from opengl_ray_tracing_framework_tpu_torch.models.material import (
+        Material, MaterialTable, preset_materials)
+    from opengl_ray_tracing_framework_tpu_torch.ops import (
+        cluster_intersect as ci)
+    from opengl_ray_tracing_framework_tpu_torch.ops import sweep as sw
+    from opengl_ray_tracing_framework_tpu_torch.parallel import autodiff
+
+    dev = scene.device
+    presets = preset_materials()
+
+    def leaves_of(grads):
+        if isinstance(grads, MaterialTable):
+            return dict(zip(Material._fields, grads.mat))
+        if isinstance(grads, ortf.Camera):
+            return dict(zip(ortf.Camera._fields, grads))
+        return {"vertices": grads}
+
+    def check_grads(label, loss, grads):
+        """Finite loss and gradients, one of them nonzero, integer leaves
+        None. Returns the largest |g|."""
+        leaves = leaves_of(grads)
+        if not np.isfinite(float(loss)):
+            fail(f"{label}: the loss is not finite")
+        top = 0.0
+        for name, g in leaves.items():
+            if g is None:
+                if name != "medium_type":
+                    fail(f"{label}: no gradient for {name}")
+                continue
+            if not bool(torch.isfinite(g).all()):
+                fail(f"{label}: the gradient of {name} is not finite")
+            top = max(top, g.abs().max().item())
+        if not top > 0:
+            fail(f"{label}: every gradient is zero")
+        return top
+
+    def with_sphere(sc, name):
+        """The scene with the sphere's material slot (1) set to a preset."""
+        mat = Material(*(
+            torch.stack([field[0], p.to(dev)])
+            for field, p in zip(sc.materials.mat, presets[name])))
+        return sc.with_materials(MaterialTable(mat=mat))
+
+    # material_grad at full width
+    target = ortf.render_radiance(with_sphere(scene, "brown_glass"), camera,
+                                  config, spp=1)
+    rays = WIDTH * HEIGHT * (1 + 2 * BOUNCES)
+    for step in ("warm-up", "timed"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        sw.sweep.launches = 0
+        sw.sweep_plain.calls = 0
+        ci.cluster_intersect.launches = 0
+        t0 = time.perf_counter()
+        loss, grads = autodiff.material_grad(
+            scene, camera, target, config, spp=1,
+            rays_per_tile=RAYS_PER_TILE)
+        host = [g.cpu() for g in grads.mat if g is not None]   # the fence
+        seconds = time.perf_counter() - t0
+        launches, plain_calls = sw.sweep.launches, sw.sweep_plain.calls
+        peak = torch.cuda.max_memory_allocated()
+        top = check_grads("material_grad", loss, grads)
+        print(f"material_grad ({step}): {WIDTH}x{HEIGHT}, {BOUNCES} bounces,"
+              f" 1 spp, {RAYS_PER_TILE} rays per batch | loss "
+              f"{float(loss):.4f}, max |g| {top:.4g}, {len(host)} float "
+              f"leaves | fwd+bwd {seconds:.3f} s, {rays / seconds:,.0f} "
+              f"rays/s | peak {peak / 2**30:.2f} GiB | K1 launches "
+              f"{launches} (a forward pass: {k1_per_pass}), plain calls "
+              f"{plain_calls}")
+        if launches != k1_per_pass:
+            fail(f"material_grad launched K1 {launches} times; the forward "
+                 f"pass launches it {k1_per_pass} times and the backward "
+                 "must launch none")
+        if plain_calls or ci.cluster_intersect.launches:
+            fail("material_grad left the sweep kernel's path")
+    grad_launches = launches
+
+    # camera and geometry gradients at 128x64
+    small = config.replace(width=128, height=64)
+    cam_small = ortf.Camera.make(aspect=2.0)
+    target_small = ortf.render_radiance(
+        with_sphere(scene, "brown_glass"), cam_small, small, spp=2)
+    for name in ("camera", "geometry"):
+        t0 = time.perf_counter()
+        loss, grads = autodiff.param_grad(scene, cam_small, target_small,
+                                          small, param=name, spp=1)
+        top = check_grads(f"{name}_grad", loss, grads)
+        shape = {k: tuple(v.shape) for k, v in leaves_of(grads).items()}
+        print(f"{name}_grad: 128x64, {BOUNCES} bounces, 1 spp | loss "
+              f"{float(loss):.4f}, max |g| {top:.4g}, shapes {shape} | "
+              f"{time.perf_counter() - t0:.2f} s")
+    if tuple(grads.shape) != (3, 3, scene.n_triangles):
+        fail(f"geometry_grad returned shape {tuple(grads.shape)}")
+
+    # card against CPU, 128x64, 2 spp. The floor's material has ior 1 and
+    # metallic 0, so its specular weight is 0 up to rounding and the
+    # `w_refl > 0` gate of disney_eval opens or shuts on float noise: its
+    # metallic, anisotropic and ior entries are left out.
+    noisy = {("metallic", 0), ("anisotropic", 0), ("ior", 0)}
+
+    def leaf_gap(grads_a, grads_b):
+        """(worst over the leaves of max |a - b| over the leaf's largest
+        |b|, that leaf's name)."""
+        worst, worst_leaf = 0.0, ""
+        for leaf, a in leaves_of(grads_a).items():
+            b = leaves_of(grads_b)[leaf]
+            if a is None and b is None:
+                continue
+            a, b = a.cpu().clone(), b.cpu().clone()
+            for f, slot in noisy:
+                if f == leaf:
+                    a[slot], b[slot] = 0.0, 0.0
+            scale = b.abs().max().item()
+            err = (a - b).abs().max().item() / scale if scale > 0 \
+                else a.abs().max().item()
+            if err > worst:
+                worst, worst_leaf = err, leaf
+        return worst, worst_leaf
+
+    # Camera and geometry gradients are held at 2 bounces. At 8 bounces
+    # they are ill-conditioned in the camera itself: the conditioning lines
+    # below move the camera by 1e-6 on the card and print how far the
+    # gradients move (tests/test_torch_grad_conditioning.py shows the same
+    # on the CPU), so two float orders cannot agree there; the 8-bounce
+    # card-vs-CPU reading is printed and not held. A camera leaf is one
+    # number, the sum over all pixels of terms of both signs (yaw: 1.4 out
+    # of terms of order 10), so float order shows at 4e-3 of it; it is held
+    # to 2e-2, the others to 5e-3.
+    scene_cpu, cam_cpu = scene.to("cpu"), cam_small.to("cpu")
+    cam_moved = cam_small._replace(
+        position=cam_small.position
+        + torch.tensor([1e-6, 0.0, 0.0], device=dev))
+    for name, bounces, tol in (
+            ("material", BOUNCES, 5e-3), ("camera", 2, 2e-2),
+            ("geometry", 2, 5e-3), ("camera", BOUNCES, None),
+            ("geometry", BOUNCES, None)):
+        cfg = small.replace(max_bounce=bounces)
+        loss_g, grads_g = autodiff.param_grad(
+            scene, cam_small, target_small, cfg, param=name, spp=2)
+        loss_c, grads_c = autodiff.param_grad(
+            scene_cpu, cam_cpu, target_small.cpu(), cfg, param=name, spp=2)
+        rel_loss = abs(float(loss_g) - float(loss_c)) / abs(float(loss_c))
+        worst, worst_leaf = leaf_gap(grads_g, grads_c)
+        print(f"{name}_grad card vs cpu: 128x64, 2 spp, {bounces} bounces | "
+              f"loss {float(loss_g):.5f} vs {float(loss_c):.5f} (rel "
+              f"{rel_loss:.2e}) | worst leaf {worst_leaf or '-'}: "
+              f"{worst:.2e} of its largest entry"
+              + (f" (held to {tol:g})" if tol is not None
+                 else " (not held: ill-conditioned at this depth)"))
+        if rel_loss >= 1e-4 or (tol is not None and worst >= tol):
+            fail(f"{name}_grad at {bounces} bounces: card and CPU disagree "
+                 f"(loss rel {rel_loss:.2e}, worst leaf {worst:.2e})")
+        if name == "material":
+            continue
+        _, grads_m = autodiff.param_grad(
+            scene, cam_moved, target_small, cfg, param=name, spp=2)
+        moved, moved_leaf = leaf_gap(grads_m, grads_g)
+        print(f"{name}_grad conditioning: {bounces} bounces, the camera "
+              f"moved by 1e-6 on the card | worst leaf {moved_leaf or '-'} "
+              f"moves by {moved:.2e} of its largest entry")
+
+    # the shapes at which material gradients once went NaN: 256x256, 8
+    # bounces, an ABSORB glass and a rough dielectric
+    cam_sq = ortf.Camera.make(position=(0.0, 0.5, -2.0), yaw=90.0,
+                              pitch=-8.0, zoom=30.0, aspect=1.0)
+    cfg_sq = ortf.RenderConfig(width=256, height=256, max_bounce=8)
+    for mat_name in ("brown_glass", "white"):
+        _, sc = ortf.build_test_scene(2, material=presets[mat_name])
+        loss, grads = autodiff.material_grad(
+            sc, cam_sq, torch.zeros((256, 256, 3), device=dev), cfg_sq,
+            rays_per_tile=16384)
+        top = check_grads(f"material_grad 256 {mat_name}", loss, grads)
+        print(f"material_grad 256x256, 8 bounces, {mat_name}: loss "
+              f"{float(loss):.3f}, max |g| {top:.4g}, all finite")
+
+    # one finite difference: the sphere's base_color, green channel
+    loss, grads = autodiff.material_grad(scene, cam_small, target_small,
+                                         small, spp=2)
+    ad = grads.mat.base_color[1, 1].item()
+    eps = 1e-2
+
+    def loss_at(delta):
+        bc = scene.materials.mat.base_color.clone()
+        bc[1, 1] += delta
+        sc = scene.with_materials(MaterialTable(
+            mat=scene.materials.mat._replace(base_color=bc)))
+        img = ortf.render_radiance(sc, cam_small, small, spp=2)
+        return torch.sum((img.double() - target_small.double()) ** 2).item()
+
+    fd = (loss_at(eps) - loss_at(-eps)) / (2 * eps)
+    print(f"finite difference, base_color[1, 1], eps {eps}: central "
+          f"difference {fd:.5f}, autograd {ad:.5f}")
+    if not abs(fd - ad) < 0.25 * max(abs(fd), abs(ad)):
+        fail("the base_color gradient disagrees with its finite difference")
+    return grad_launches
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--png", help="also save the rendered image here")
@@ -209,22 +584,25 @@ def main() -> int:
     from opengl_ray_tracing_framework_tpu_torch.ops import integrator
     from opengl_ray_tracing_framework_tpu_torch.ops import schedule as sched
     from opengl_ray_tracing_framework_tpu_torch.ops import sweep as sw
+    from opengl_ray_tracing_framework_tpu_torch import probes
+    from opengl_ray_tracing_framework_tpu_torch.probes import (  # noqa: F401
+        kernel_build)   # its import registers every kernel's source
     from opengl_ray_tracing_framework_tpu_torch.utils import nvcc
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
     # 1. device
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()[0]
+    smi = probes.device_line()
     print(smi)
     print(f"device: torch {torch.__version__}, cuda {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}")
 
     # 2. build: one nvcc per source, started together
-    names = ("sweep", "cluster_intersect")
+    names = sorted(nvcc.KERNELS)
+    missing = EXPECTED_KERNELS - set(names)
+    if missing:
+        fail(f"no wrapper registered the kernels {sorted(missing)}")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(names)) as pool:
         built = list(pool.map(nvcc.build, names))
@@ -232,7 +610,7 @@ def main() -> int:
         regs = [ln.strip() for ln in log.splitlines() if "registers" in ln]
         print(f"build: {name}.cu -> {path.name} in {build_s:.2f} s"
               + (f" | ptxas: {regs[-1]}" if regs else " (cached)"))
-    print(f"build: both in {time.perf_counter() - t0:.2f} s")
+    print(f"build: all {len(names)} in {time.perf_counter() - t0:.2f} s")
 
     # 3. K1 vs plain at main-path shapes
     t0 = time.perf_counter()
@@ -494,6 +872,10 @@ def main() -> int:
         compare_images(f"{label} vs sweep", got, sweep_1spp,
                        f"128x64, 1 spp, {time.perf_counter() - t0:.2f} s | ")
 
+    # 10-11. the probe kernels and the probes; 12. the gradient path
+    probe_entries, probe_counts = probe_phases(scene, camera, config)
+    grad_phases(ortf, scene, camera, config, k1_launches // 3)
+
     if args.profile:
         profile_pass("sweep", ortf, scene, camera, config)
         profile_pass("schedule", ortf, scene, camera, sched_config)
@@ -515,6 +897,9 @@ def main() -> int:
         entry("cluster_intersect",
               "opengl_ray_tracing_framework_tpu/ops/intersect_pallas.py:66",
               k2_launches, k2, k2_main),
+        *({**probe_entries[name], "launches": probe_counts[name]}
+          for name in ("probe_copy", "probe_gather", "probe_smem",
+                       "probe_stream")),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

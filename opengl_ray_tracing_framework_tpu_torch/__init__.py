@@ -4,7 +4,8 @@ A second package beside opengl_ray_tracing_framework_tpu (the JAX/Pallas
 reference it is held against), for NVIDIA Hopper. It imports torch and
 never jax. Layout mirrors the JAX package: models/ (host scene pipeline,
 materials, camera), ops/ (shading math, environment, traversal,
-integrator), render.py (the progressive render API), utils/ (config,
+integrator), render.py (the progressive render API), parallel/ (the
+gradients), probes/ (measurement probes of the card), utils/ (config,
 image export, the nvcc build of csrc/).
 
 The forward render runs end to end for every value of the JAX package's
@@ -16,9 +17,20 @@ ops/cluster_intersect.py and ops/schedule.py), the batched BVH traversal
 (cast_backend="bvh") and the brute-force oracle (use_bvh=False). A kernel
 runs on CUDA tensors; a CPU tensor gets its plain PyTorch version.
 
+Gradients of sum((render - target)^2) with respect to the material table,
+the camera pose and the triangle vertices come from torch autograd
+(parallel/autodiff.py: material_grad, camera_grad, geometry_grad,
+param_grad; imported from there, as in the JAX package): forward and
+backward run one ray batch at a time, traversal is detached, and the
+backward launches no kernel. probes/ holds the card's counterparts of the
+TPU cost probes under exp/ (kernels csrc/probe_copy.cu, probe_gather.cu,
+probe_smem.cu, probe_stream.cu), each runnable as
+`python -m opengl_ray_tracing_framework_tpu_torch.probes.<name>`.
+
 Constructors and entry points put their tensors on the card unless the
 caller names a device (device="cpu", as the tests do). Not ported yet:
-gradients, the CLI, checkpoints, multi-device (ROADMAP.md, Queue 1).
+the CLI, checkpoints, multi-device with the sharded gradients (ROADMAP.md,
+Queue 1).
 """
 
 __version__ = "0.1.0"

@@ -70,6 +70,11 @@ class SceneData:
             f.name: getattr(self, f.name).to(device)
             for f in dataclasses.fields(self)})
 
+    def with_materials(self, materials: MaterialTable) -> "SceneData":
+        """The same scene with another material table (a live material
+        edit; the differentiable parameter of material_grad)."""
+        return dataclasses.replace(self, materials=materials)
+
     def material_of(self, tri_idx: torch.Tensor) -> Material:
         safe = torch.clamp(tri_idx, 0, self.n_triangles - 1).long()
         return self.materials.gather(self.tri_attr[18, safe].long())

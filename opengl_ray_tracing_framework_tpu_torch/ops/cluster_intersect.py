@@ -20,10 +20,10 @@ parallel iff |A| <= E, strict interior test, inside = (d.n > 0).
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 
+from ..utils import nvcc
 from .intersect import INF
 from .sweep import BEST_W, MAX_BLOCK_TRIS, N_FEAT, TILE_R, intersect_span_plain
 
@@ -88,13 +88,8 @@ def cluster_intersect_plain(rayfeat, best, spans, nspan, trifeat):
 cluster_intersect_plain.calls = 0
 
 
-@functools.cache
-def _library():
-    """csrc/cluster_intersect.cu, built at first use, with its C signatures
-    declared."""
-    from ..utils import nvcc
-
-    lib = nvcc.load("cluster_intersect")
+def _declare(lib):
+    """Declare the C signatures of a loaded csrc/cluster_intersect.cu."""
     lib.cluster_intersect_block_rays.argtypes = []
     lib.cluster_intersect_block_rays.restype = ctypes.c_int
     lib.cluster_intersect_launch.argtypes = (
@@ -134,7 +129,7 @@ def cluster_intersect(rayfeat, best, spans, nspan, trifeat):
             f"kernel takes at most {MAX_BLOCK_TRIS}")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = _library().cluster_intersect_launch(
+        rc = nvcc.load("cluster_intersect").cluster_intersect_launch(
             rayfeat.data_ptr(), best.data_ptr(), spans.data_ptr(),
             nspan.data_ptr(), trifeat.data_ptr(), g * tile, tile, k, c,
             t_blk, stream)
@@ -146,3 +141,18 @@ def cluster_intersect(rayfeat, best, spans, nspan, trifeat):
 
 
 cluster_intersect.launches = 0
+
+
+def _smoke(device):
+    """One tile of rays against one elected cluster of 8 triangles."""
+    gen = torch.Generator(device="cpu").manual_seed(0)
+    rayfeat = torch.rand((TILE_R, N_FEAT), generator=gen).to(device)
+    trifeat = torch.rand((1, N_FEAT, 32), generator=gen).to(device)
+    best = init_best(TILE_R, device)
+    spans = torch.zeros((1, 1), dtype=torch.int32, device=device)
+    nspan = torch.ones(1, dtype=torch.int32, device=device)
+    return lambda: cluster_intersect(rayfeat, best.clone(), spans, nspan,
+                                     trifeat)
+
+
+nvcc.register("cluster_intersect", _declare, _smoke)

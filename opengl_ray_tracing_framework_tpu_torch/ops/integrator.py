@@ -24,6 +24,13 @@ Compaction: each bounce runs only on the rays alive at its start (an
 index of the live lanes, a dynamic shape), and writes their radiance back.
 Exact for the JAX module's reason: a dead lane contributes nothing again,
 so its radiance is final when it dies.
+
+Autograd: everything here is differentiable with respect to the scene's
+float tensors and the ray tensors except the casts, which are detached
+(ops/traverse.py). The per-bounce write of the live lanes' radiance into
+the output is an in-place index_put_: nothing saved for the backward reads
+that tensor, and a lane a later bounce overwrites gets its gradient from
+that later write only, which is the compaction's exactness argument again.
 """
 
 from __future__ import annotations

@@ -36,11 +36,11 @@ answer; only which of two hits at exactly equal t wins can depend on them.
 from __future__ import annotations
 
 import ctypes
-import functools
 import math
 
 import torch
 
+from ..utils import nvcc
 from .intersect import INF, T_MIN, Hit
 from .sampling import _cross
 
@@ -198,12 +198,8 @@ sweep_plain.calls = 0
 sweep_plain.visited = None
 
 
-@functools.cache
-def _library():
-    """csrc/sweep.cu, built at first use, with its C signatures declared."""
-    from ..utils import nvcc
-
-    lib = nvcc.load("sweep")
+def _declare(lib):
+    """Declare the C signatures of a loaded csrc/sweep.cu."""
     lib.sweep_tile_rays.argtypes = []
     lib.sweep_tile_rays.restype = ctypes.c_int
     lib.sweep_launch.argtypes = ([ctypes.c_void_p] * 6
@@ -246,7 +242,7 @@ def sweep(nspan, spans, tile_sorted, rayfeat, best, trifeat):
                          f"kernel takes at most {MAX_BLOCK_TRIS}")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = _library().sweep_launch(
+        rc = nvcc.load("sweep").sweep_launch(
             nspan.data_ptr(), spans.data_ptr(), tile_sorted.data_ptr(),
             rayfeat.data_ptr(), best.data_ptr(), trifeat.data_ptr(),
             g, c, t_blk, stream)
@@ -257,6 +253,23 @@ def sweep(nspan, spans, tile_sorted, rayfeat, best, trifeat):
 
 
 sweep.launches = 0
+
+
+def _smoke(device):
+    """One tile of rays against one cluster of 8 triangles."""
+    gen = torch.Generator(device="cpu").manual_seed(0)
+    rayfeat = torch.rand((TILE_R, N_FEAT), generator=gen).to(device)
+    trifeat = torch.rand((1, N_FEAT, 32), generator=gen).to(device)
+    best = torch.zeros((TILE_R, BEST_W), device=device)
+    best[:, 0], best[:, 1], best[:, 3] = INF, -1.0, INF
+    nspan = torch.ones(1, dtype=torch.int32, device=device)
+    spans = torch.zeros((1, 1), dtype=torch.int32, device=device)
+    tile_sorted = torch.zeros((1, 1), device=device)
+    return lambda: sweep(nspan, spans, tile_sorted, rayfeat, best.clone(),
+                         trifeat)
+
+
+nvcc.register("sweep", _declare, _smoke)
 
 
 # ---------------------------------------------------------------------------

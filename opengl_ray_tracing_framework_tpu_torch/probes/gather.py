@@ -1,0 +1,205 @@
+"""Table-lookup throughput: the card's counterpart of
+exp/pallas_gather_probe.py and exp/pallas_perf_probe.py::probe_axis0_gather.
+
+    python -m opengl_ray_tracing_framework_tpu_torch.probes.gather
+
+The function is the TPU probes': out = table[idx], and the chained form
+acc = (int(tab[acc, j]) + 1) % s repeated `steps` times. Every thread of
+this card can load any address, so no lowering can fail; what the probe
+measures is the rate, with the table read from global memory (csrc/
+probe_gather.cu) and with a copy staged in shared memory first, from the
+TPU probe's 4,096 entries up to a table that leaves the 50 MB L2. Indices
+come from HBM and results go there (hbm_ms); the time with both left in
+the L2 cache (graph_ms) is printed beside it.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ..utils import nvcc
+from . import (N_SMS, PEAK_HBM_BYTES, check_tensor, device_line, graph_ms,
+               hbm_ms, launch)
+
+MAX_STAGED_BYTES = 227 * 1024   # H100's opt-in shared memory per block
+
+
+def probe_gather_plain(table, idx, steps=0, staged=False):
+    """Plain PyTorch version of csrc/probe_gather.cu. table (S,) or (S, W)
+    f32; idx any shape (last dim W for a 2-D table) integer in [0, S).
+    steps = 0: table[idx] (column j of a 2-D table for idx[..., j]);
+    steps > 0: `steps` chained lookups acc = (int(table[acc]) + 1) % S,
+    returned as float32."""
+    probe_gather_plain.calls += 1
+    s = table.shape[0]
+    if table.ndim == 2:
+        col = torch.arange(table.shape[1], device=table.device)
+        look = lambda a: table[a, col]
+    else:
+        look = lambda a: table[a]
+    acc = idx.long()
+    if steps == 0:
+        return look(acc)
+    for _ in range(steps):
+        acc = (look(acc).long() + 1) % s
+    return acc.to(torch.float32)
+
+
+probe_gather_plain.calls = 0
+
+
+def _declare(lib):
+    lib.probe_gather_launch.argtypes = (
+        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_longlong]
+        + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    lib.probe_gather_launch.restype = ctypes.c_int
+    return lib
+
+
+def probe_gather(table, idx, steps=0, staged=False):
+    """out = table[idx], or `steps` chained lookups: csrc/probe_gather.cu
+    on CUDA tensors, probe_gather_plain on CPU tensors. staged=True copies
+    the table into each CTA's shared memory first (it must fit 227 KB).
+    idx is int32. `probe_gather.launches` counts kernel launches."""
+    dev = table.device
+    if dev.type == "cpu":
+        return probe_gather_plain(table, idx, steps, staged)
+    if dev.type != "cuda":
+        raise NotImplementedError(f"probe_gather has no {dev} version")
+    s = table.shape[0]
+    cols = table.shape[1] if table.ndim == 2 else 1
+    check_tensor("probe_gather", "table", table, torch.float32,
+                 (s, cols) if table.ndim == 2 else (s,), dev)
+    check_tensor("probe_gather", "idx", idx, torch.int32, idx.shape, dev)
+    if table.ndim == 2 and idx.shape[-1] != cols:
+        raise ValueError(f"probe_gather: idx rows must hold {cols} columns")
+    if staged and s * cols * 4 > MAX_STAGED_BYTES:
+        raise ValueError(
+            f"probe_gather: a staged table of {s * cols * 4} bytes exceeds "
+            f"the {MAX_STAGED_BYTES} a block can claim")
+    if steps and s >= 1 << 24:
+        raise ValueError("probe_gather: a chained index must fit float32")
+    out = torch.empty(idx.shape, dtype=torch.float32, device=dev)
+    n_idx = idx.numel()
+    # staged: few CTAs, each pays for its copy of the table
+    n_ctas = min(-(-n_idx // 256), N_SMS if staged else 8 * N_SMS)
+    lib = nvcc.load("probe_gather")
+    launch("probe_gather", dev, lambda stream: lib.probe_gather_launch(
+        table.data_ptr(), idx.data_ptr(), out.data_ptr(), s, cols, n_idx,
+        steps, int(staged), max(n_ctas, 1), stream))
+    probe_gather.launches += 1
+    return out
+
+
+probe_gather.launches = 0
+
+
+def make_inputs(device, n_table, idx_shape, cols=None, seed=0):
+    """The TPU probes' data: table[i] = 2 i (1-D) or a lane-replicated
+    table[i, j] = i (cols given), and uniform random int32 indices."""
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    if cols is None:
+        table = torch.arange(n_table, dtype=torch.float32) * 2.0
+    else:
+        table = torch.arange(n_table, dtype=torch.float32)[:, None] \
+            .repeat(1, cols)
+    idx = torch.randint(0, n_table, idx_shape, generator=gen,
+                        dtype=torch.int32)
+    return table.to(device), idx.to(device)
+
+
+def gather_bytes(n_idx):
+    """Bytes a gather must move: each index in, each value out, and at
+    least the 4 B it looks up."""
+    return n_idx * 12
+
+
+def run(device="cuda", n_idx=1 << 22):
+    """Gather rates by table size and source (device time, indices from
+    HBM). Returns dict rows."""
+    device = torch.device(device)
+    rows = []
+    # the TPU probe's own shape: a yes/no probe there, one tiny launch here
+    table, idx = make_inputs(device, 4096, (8, 128))
+    for staged in (False, True):
+        got = probe_gather(table, idx, staged=staged)
+        if not torch.equal(got, probe_gather_plain(table, idx)):
+            raise RuntimeError("gather: the (8, 128) lookup differs")
+    print("gather: table (4096,), idx (8, 128): global and staged lookups "
+          "equal table[idx]")
+    for log2 in (12, 14, 15, 20, 24, 26):
+        n_table = 1 << log2
+        table, idx = make_inputs(device, n_table, (n_idx,))
+        want = probe_gather_plain(table, idx)
+        library_ms = hbm_ms(lambda t, i: torch.index_select(t, 0, i),
+                            (table, idx))
+        for staged in (False, True):
+            if staged and n_table * 4 > MAX_STAGED_BYTES:
+                continue
+            got = probe_gather(table, idx, staged=staged)
+            if not torch.equal(got, want):
+                raise RuntimeError(f"gather: table 2^{log2} staged={staged} "
+                                   "differs from table[idx]")
+            ms = hbm_ms(lambda t, i: probe_gather(t, i, staged=staged),
+                        (table, idx))
+            warm_ms = graph_ms(lambda: probe_gather(table, idx,
+                                                    staged=staged))
+            bound_ms = gather_bytes(n_idx) / PEAK_HBM_BYTES * 1e3
+            rows.append(dict(n_table=n_table, staged=staged, n_idx=n_idx,
+                             ms=ms, warm_ms=warm_ms,
+                             gelem_s=n_idx / ms / 1e6,
+                             bound_ms=bound_ms, library_ms=library_ms))
+            print(f"gather: table 2^{log2} f32 ({n_table * 4 / 2**20:.3f} "
+                  f"MiB) from {'shared' if staged else 'global'} memory, "
+                  f"{n_idx} lookups: {ms * 1e3:.1f} us = "
+                  f"{n_idx / ms / 1e6:.1f} Gelem/s | bytes bound "
+                  f"{bound_ms * 1e3:.1f} us | index_select "
+                  f"{library_ms * 1e3:.1f} us | indices and results left in "
+                  f"L2 {warm_ms * 1e3:.1f} us")
+    return rows
+
+
+def run_chained(device="cuda", steps=8):
+    """The TPU probe's 8 dependent lookups on a lane-replicated (S, 128)
+    table, S = 512..4,096, from global and from shared memory."""
+    device = torch.device(device)
+    rows = []
+    for s in (512, 1024, 2048, 4096):
+        table, idx = make_inputs(device, s, (s, 128), cols=128)
+        want = probe_gather_plain(table, idx, steps)
+        # the lane-replicated table is S x 512 B: only S <= 454 would fit a
+        # block's shared memory, so the staged form reads the same values
+        # from the 1-D table a thread of this card needs
+        flat, flat_idx = table[:, 0].contiguous(), idx.reshape(-1)
+        for label, inputs, kw in (
+                ("global (S,128)", (table, idx), {}),
+                ("global (S,)", (flat, flat_idx), {}),
+                ("shared (S,)", (flat, flat_idx), dict(staged=True))):
+            fn = lambda t, i: probe_gather(t, i, steps, **kw)
+            got = fn(*inputs).reshape(s, 128)
+            if not torch.equal(got, want):
+                raise RuntimeError(f"gather: chained S={s} {label} differs")
+            ms = hbm_ms(fn, inputs)
+            n = steps * s * 128
+            rows.append(dict(s=s, source=label, ms=ms,
+                             gelem_s=n / ms / 1e6))
+            print(f"gather: chained x{steps}, S={s}, {label}: "
+                  f"{ms * 1e3:.1f} us for {n} lookups = "
+                  f"{n / ms / 1e6:.2f} Gelem/s")
+    return rows
+
+
+def _smoke(device):
+    table, idx = make_inputs(device, 4096, (8, 128))
+    return lambda: probe_gather(table, idx)
+
+
+nvcc.register("probe_gather", _declare, _smoke)
+
+
+if __name__ == "__main__":
+    print(device_line())
+    run()
+    run_chained()

@@ -13,7 +13,9 @@ Replaces the reference's frame loop + FBO ping-pong
                    (RenderSettings.h:90); an edit starts a fresh state,
 - `finalize`       tone map + gamma (PASS 3, main.cpp:215-227).
 
-Everything runs on the scene's device, forward only (torch.no_grad).
+Everything runs on the scene's device. render_pass and finalize are forward
+only (torch.no_grad); trace_pixels is the differentiable per-batch trace
+that parallel/autodiff.py builds its losses on.
 """
 
 from __future__ import annotations
@@ -49,24 +51,30 @@ def init_render_state(config: RenderConfig, device=None) -> RenderState:
         n_samples=0)
 
 
-def _trace_image(scene: SceneData, camera: Camera, frame: int,
-                 config: RenderConfig, rays_per_tile: int) -> torch.Tensor:
-    """One sample per pixel -> (H, W, 3) radiance. frame is the 1-based
-    progressive index (camera.loopNum + 1, glsl:1325/1409).
-
-    Pixels are traced in 32x32-block order when the image tiles into
-    blocks, so each kernel tile of rays covers a compact image square
-    (the GPU rasterizer's 2D order, which the reference gets for free)."""
-    dev = scene.device
-    n_pix, h, w = config.n_pixels, config.height, config.width
-    blocked = h % BLOCK == 0 and w % BLOCK == 0
-
-    pixel_id = torch.arange(n_pix, dtype=torch.int64, device=dev)
-    if blocked:
-        pixel_id = pixel_id.reshape(
-            h // BLOCK, BLOCK, w // BLOCK, BLOCK).permute(0, 2, 1, 3) \
+def pixel_order(config: RenderConfig, row0: int, n_rows: int,
+                device) -> torch.Tensor:
+    """Pixel ids (int64) of rows [row0, row0 + n_rows) in traced order:
+    32x32-block order when the rows tile into blocks, so each kernel tile
+    of rays covers a compact image square (the GPU rasterizer's 2D order,
+    which the reference gets for free), row order otherwise."""
+    w = config.width
+    local = torch.arange(n_rows * w, dtype=torch.int64, device=device)
+    if n_rows % BLOCK == 0 and w % BLOCK == 0:
+        local = local.reshape(
+            n_rows // BLOCK, BLOCK, w // BLOCK, BLOCK).permute(0, 2, 1, 3) \
             .reshape(-1)
+    return local + w * row0
 
+
+def trace_pixels(scene: SceneData, camera: Camera, pixel_id: torch.Tensor,
+                 frame: int, config: RenderConfig) -> torch.Tensor:
+    """One sample of the given pixels -> (R, 3) radiance. frame is the
+    1-based progressive index (camera.loopNum + 1, glsl:1325/1409).
+
+    Differentiable: the rays are generated here, per batch, so a camera
+    that requires grad sits inside the batch's own graph. The forward
+    render calls it under no_grad."""
+    w, h = config.width, config.height
     px = (pixel_id % w).to(torch.float32)
     py = (pixel_id // w).to(torch.float32)
     if config.pixel_jitter:
@@ -74,19 +82,22 @@ def _trace_image(scene: SceneData, camera: Camera, frame: int,
         jv = rand01(pixel_id, frame, 1002)
     else:
         ju = jv = 0.5
-    origin, direction = camera.to(dev).generate_rays((px + ju) / w,
-                                                     (py + jv) / h)
+    origin, direction = camera.generate_rays((px + ju) / w, (py + jv) / h)
+    return trace_radiance(scene, origin, direction, pixel_id, frame, config)
 
-    radiance = torch.empty((n_pix, 3), dtype=torch.float32, device=dev)
-    for lo in range(0, n_pix, rays_per_tile):
-        sl = slice(lo, lo + rays_per_tile)
-        radiance[sl] = trace_radiance(scene, origin[sl], direction[sl],
-                                      pixel_id[sl], frame, config)
-    if blocked:
-        return radiance.reshape(
-            h // BLOCK, w // BLOCK, BLOCK, BLOCK, 3).permute(0, 2, 1, 3, 4) \
-            .reshape(h, w, 3)
-    return radiance.reshape(h, w, 3)
+
+def _trace_image(scene: SceneData, camera: Camera, frame: int,
+                 config: RenderConfig, rays_per_tile: int) -> torch.Tensor:
+    """One sample per pixel -> (H, W, 3) radiance, traced in batches of
+    rays_per_tile pixels in pixel_order."""
+    dev = scene.device
+    camera = camera.to(dev)
+    pixel_id = pixel_order(config, 0, config.height, dev)
+    radiance = torch.empty((config.n_pixels, 3), dtype=torch.float32,
+                           device=dev)
+    for batch in pixel_id.split(rays_per_tile):
+        radiance[batch] = trace_pixels(scene, camera, batch, frame, config)
+    return radiance.reshape(config.height, config.width, 3)
 
 
 @torch.no_grad()

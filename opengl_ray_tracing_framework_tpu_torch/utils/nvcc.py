@@ -4,11 +4,16 @@ Each kernel is a .cu file with a plain C interface, compiled by nvcc for
 sm_90a into build/torch_kernels/ beside the package (a directory git
 ignores), named by a hash of every file of csrc/ (the kernels share
 headers) and of the flags so an edited source or header is rebuilt, and
-loaded with ctypes. Nothing here runs at import time.
+loaded with ctypes. A wrapper module registers its source by name at
+import, with the function that declares the library's C signatures and the
+smallest real launch through its wrapper: `KERNELS` is what the smoke test
+builds and what probes/kernel_build.py measures. Nothing is built, loaded
+or launched at import time.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -23,7 +28,17 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
+KERNELS: dict = {}   # source name -> (declare(lib), smoke(device) -> launch)
 _LOADED: dict = {}
+
+
+def register(name: str, declare, smoke) -> None:
+    """Name csrc/<name>.cu as a kernel of the package. declare(lib) sets the
+    C signatures of its loaded library and returns it; smoke(device) puts
+    the smallest real inputs on the device and returns a function without
+    arguments that launches the kernel on them through its wrapper and
+    returns the result."""
+    KERNELS[name] = (declare, smoke)
 
 
 def _nvcc() -> str:
@@ -45,6 +60,18 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"{name}_{digest[:16]}.so"
 
 
+def compile_source(name: str, out: Path) -> tuple[float, str]:
+    """nvcc csrc/<name>.cu -> the shared library `out`, whatever exists
+    there or in the cache. Returns (seconds, compiler log)."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [_nvcc(), *NVCC_FLAGS, "-o", str(out), str(CSRC / f"{name}.cu")],
+        capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {name}.cu:\n{proc.stderr}")
+    return time.perf_counter() - t0, proc.stdout + proc.stderr
+
+
 def build(name: str) -> tuple[Path, float, str]:
     """Compile csrc/<name>.cu unless its library exists. Returns (path,
     seconds spent compiling, compiler log; 0.0 and "" when cached)."""
@@ -54,24 +81,36 @@ def build(name: str) -> tuple[Path, float, str]:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    t0 = time.perf_counter()
     try:
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")],
-            capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {name}.cu:\n{proc.stderr}")
+        seconds, log = compile_source(name, Path(tmp))
         os.replace(tmp, out)   # atomic: concurrent builders agree
     finally:
         if os.path.exists(tmp):
             os.unlink(tmp)
-    return out, time.perf_counter() - t0, proc.stdout + proc.stderr
+    return out, seconds, log
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of csrc/<name>.cu, built on first use."""
+    """The library of csrc/<name>.cu with its C signatures declared, built
+    and loaded on first use."""
     lib = _LOADED.get(name)
     if lib is None:
-        lib = ctypes.CDLL(str(build(name)[0]))
+        lib = KERNELS[name][0](ctypes.CDLL(str(build(name)[0])))
         _LOADED[name] = lib
     return lib
+
+
+@contextlib.contextmanager
+def loaded_from(name: str, path: Path):
+    """Inside the block, load(name) gives a fresh load of the library at
+    `path` (one compile_source built elsewhere than the cache), so the
+    wrapper's next launch is that library's first."""
+    saved = _LOADED.get(name)
+    _LOADED[name] = KERNELS[name][0](ctypes.CDLL(str(path)))
+    try:
+        yield _LOADED[name]
+    finally:
+        if saved is None:
+            del _LOADED[name]
+        else:
+            _LOADED[name] = saved

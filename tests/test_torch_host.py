@@ -99,18 +99,28 @@ def test_reference_scene_missing_assets(tmp_path):
 
 
 def test_port_never_imports_jax():
-    code = ("import sys, opengl_ray_tracing_framework_tpu_torch as p, "
-            "opengl_ray_tracing_framework_tpu_torch.ops.sweep, "
-            "opengl_ray_tracing_framework_tpu_torch.ops.schedule, "
-            "opengl_ray_tracing_framework_tpu_torch.ops.cluster_intersect, "
-            "opengl_ray_tracing_framework_tpu_torch.utils.nvcc; "
-            "assert 'jax' not in sys.modules, sorted(m for m in sys.modules "
-            "if m.startswith('jax')); print('ok')")
+    """Every module of the port (walked, so parallel/ and probes/ and
+    whatever comes later are covered) and chip_smoke.py import neither jax
+    nor the JAX package."""
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import opengl_ray_tracing_framework_tpu_torch as p\n"
+        "names = [m.name for m in pkgutil.walk_packages(p.__path__, "
+        "p.__name__ + '.')]\n"
+        "for n in names: importlib.import_module(n)\n"
+        "import chip_smoke\n"
+        "for want in ('parallel.autodiff', 'probes.launch_overhead', "
+        "'probes.gather', 'probes.card_perf', 'probes.kernel_build'):\n"
+        "    assert p.__name__ + '.' + want in names, want\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'opengl_ray_tracing_framework_tpu'))\n"
+        "assert not bad, bad\n"
+        "print('ok', len(names))")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120,
                          cwd=Path(__file__).resolve().parents[1])
     assert out.returncode == 0, out.stderr
-    assert out.stdout.strip() == "ok"
+    assert out.stdout.split()[0] == "ok"
 
 
 def test_entry_points_default_to_the_card():
