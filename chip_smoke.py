@@ -13,13 +13,18 @@ when torch sees no CUDA device, and when anything below fails:
     all started together;
  3. K1 against its plain version on the card, at the main path's shapes:
     the 81,922-triangle procedural scene (loong-100k's scale), a
-    65,536-ray primary cast and the first bounce's merged NEE-shadow +
-    bounce cast of the same rays, each held against sweep_plain on the
-    same inputs and timed with CUDA events;
+    65,536-ray primary cast, the first bounce's merged NEE-shadow + bounce
+    cast of the same rays, the merged cast of bounce 4 (few rays whose
+    tiles overlap many clusters: where a pass spends the kernel's time),
+    the primary cast against cluster blocks cut to a T that is no multiple
+    of 4, and the span-latency cases (1, 132 and 1,024 tiles that each
+    walk exactly 64 spans: microseconds per span of a tile's walk), each
+    held against sweep_plain on the same inputs and timed with CUDA events;
  4. K2 against its plain version at the schedule path's shapes: the same
     primary batch and the first bounce's bounce cast, with spans / nspan
     from the tracer's real votes; every round's launch is compared, the
-    first round and the round with the most elected spans are timed;
+    first round and the round with the most elected spans are timed, and
+    the mean launch over all rounds of the bounce cast;
  5. the default render: render_progressive at 1024x512, 8 bounces, BSDF,
     HDR environment + MIS, tear-glass sphere, 1024x512 procedural HDR,
     sweep tracer; one warm-up pass and two timed passes, each fenced by a
@@ -78,7 +83,8 @@ nowhere in the port.
 It prints one line of numbers per phase, then a JSON line describing the
 kernels, then {"ok": true, "device": {...}} as the last line. --profile
 adds, before those two, a torch.profiler summary of one sweep pass and one
-schedule pass (device time in kernels, the kernels that took most of it).
+schedule pass (device time in kernels, the kernels that took most of it,
+K1's and K2's time per launch) and K1's device time by cast site.
 """
 
 from __future__ import annotations
@@ -92,6 +98,9 @@ from concurrent.futures import ThreadPoolExecutor
 WIDTH, HEIGHT, BOUNCES = 1024, 512, 8
 RAYS_PER_TILE = 65536
 REPEATS = 5
+DEEP_BOUNCE = 5             # phase 3 also takes the merged cast of bounce 4
+RAGGED_T = 250              # a cluster block width that is no multiple of 4
+SPAN_WALK = 64              # spans per tile of the span-latency cases
 PEAK_FP32_FLOPS = 67e12     # H100 SXM, FP32 outside the tensor cores
 PEAK_HBM_BYTES = 3.35e12    # H100 SXM, HBM3
 FLOPS_PER_PAIR = 80         # 40 FMAs per ray x triangle (csrc/mt_span.cuh)
@@ -200,6 +209,56 @@ def profile_pass(label, ortf, scene, camera, config):
     print(f"profile {label}: pass {pass_s[0]:.3f} s under the profiler | "
           f"device in kernels {busy:.3f} s ({busy / pass_s[0]:.1%} of it), "
           f"{sum(r[2] for r in rows)} device operations | top: {top}")
+    for kernel in ("sweep_kernel", "cluster_intersect_kernel"):
+        hits = [r for r in rows if kernel in r[0]]
+        if hits:
+            t, n = sum(r[1] for r in hits), sum(r[2] for r in hits)
+            print(f"profile {label}: {kernel} {t * 1e3:.1f} ms in {n} "
+                  f"launches, {t / n * 1e3:.4f} ms each")
+
+
+def profile_k1_casts(ortf, sw, scene, camera, config):
+    """One warm sweep pass with CUDA events around every K1 launch: the
+    kernel's device time by cast site (the primary cast and each bounce's
+    merged cast, summed over the pass's batches), with the rays, the live
+    rays and the clusters each tile overlaps. The reads of the span counts
+    synchronise the host, so this pass's wall time is not a reading."""
+    import torch
+    real_sweep, log = sw.sweep, []
+
+    def timed_sweep(nspan, spans, tile_sorted, rayfeat, best, trifeat):
+        live = int((best[:, 0] > 0).sum())     # masked rays carry -INF
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        out = real_sweep(nspan, spans, tile_sorted, rayfeat, best, trifeat)
+        end.record()
+        log.append((start, end, best.shape[0], live,
+                    nspan.float().mean().item(), int(nspan.max())))
+        return out
+
+    timed_sweep.launches = 0   # the wrapper counts on the module's name
+    sw.sweep = timed_sweep
+    try:
+        timed_passes(ortf, scene, camera, config, 1)
+    finally:
+        sw.sweep = real_sweep
+    torch.cuda.synchronize()
+    sites = 1 + config.max_bounce
+    if len(log) % sites:
+        fail(f"profile: {len(log)} K1 launches are not batches of {sites}")
+    total = 0.0
+    for site in range(sites):
+        rows = log[site::sites]
+        ms = sum(a.elapsed_time(b) for a, b, *_ in rows)
+        total += ms
+        n = len(rows)
+        print(f"profile K1 {'primary' if site == 0 else f'bounce {site - 1}'}"
+              f": {n} launches, {ms:.2f} ms | per launch "
+              f"{sum(r[2] for r in rows) / n:,.0f} rays, "
+              f"{sum(r[3] for r in rows) / n:,.0f} live, clusters "
+              f"overlapped per tile mean {sum(r[4] for r in rows) / n:.1f} "
+              f"max {max(r[5] for r in rows)}")
+    print(f"profile K1: {len(log)} launches, {total:.2f} ms by CUDA events")
 
 
 def check_image(label, img):
@@ -640,37 +699,43 @@ def main() -> int:
     origin, direction = camera.generate_rays(u, v)
     ones = torch.ones(RAYS_PER_TILE, dtype=torch.bool, device=dev)
 
-    captured = {}
+    captured = []
     real_pair = integrator.closest_hit_pair
 
     def capture_pair(scene_, *rest):
-        captured.setdefault("pair", rest[:6])   # the rays, not the config
+        captured.append(rest[:6])   # the rays, not the config
         return real_pair(scene_, *rest)
 
     integrator.closest_hit_pair = capture_pair
     try:
         with torch.no_grad():
             integrator.trace_radiance(scene, origin, direction, pixel_id, 1,
-                                      config.replace(max_bounce=1))
+                                      config.replace(max_bounce=DEEP_BOUNCE))
     finally:
         integrator.closest_hit_pair = real_pair
-    o_any, d_any, m_any, o_cls, d_cls, m_cls = captured["pair"]
+    if len(captured) != DEEP_BOUNCE:
+        fail(f"{len(captured)} merged casts in {DEEP_BOUNCE} bounces")
+
+    def merged(pair):
+        o_a, d_a, m_a, o_c, d_c, m_c = pair
+        return (torch.cat([o_a, o_c]), torch.cat([d_a, d_c]),
+                torch.cat([m_a, m_c]),
+                torch.cat([torch.ones_like(m_a), torch.zeros_like(m_c)]))
+
+    o_any, d_any, m_any, o_cls, d_cls, m_cls = captured[0]
     w = o_any.shape[0]
-    cases = {
-        "primary": (origin, direction, ones, torch.zeros_like(ones)),
-        "pair": (torch.cat([o_any, o_cls]), torch.cat([d_any, d_cls]),
-                 torch.cat([m_any, m_cls]),
-                 torch.cat([torch.ones_like(m_any), torch.zeros_like(m_cls)])),
-    }
     slot2tri = scene.cl_slot2tri.long()
     k1 = {}
-    for name, rays in cases.items():
-        kargs, _ = sw.sweep_inputs(scene, *rays)
+
+    def k1_case(name, kargs, live, slots=slot2tri):
+        """Hold K1 against sweep_plain on one set of kernel arguments,
+        time both and print the case's line."""
         nspan, spans, best0 = kargs[0], kargs[1], kargs[4]
+        t_case = kargs[5].shape[2] // 4
         got = sw.sweep(*kargs[:4], best0.clone(), kargs[5])
         want = sw.sweep_plain(*kargs)
         torch.cuda.synchronize()
-        err, agree, tri_agree = compare_records(got, want, slot2tri,
+        err, agree, tri_agree = compare_records(got, want, slots,
                                                 f"K1 {name}")
         # the work these inputs need: the spans the walk visits before
         # its stop test ends it (counted by the plain version's walk)
@@ -679,24 +744,72 @@ def main() -> int:
             < visited[:, None]
         bound = span_bound(
             int(visited.sum()), int(torch.unique(spans[walked]).numel()),
-            t_blk, best0.shape[0],
+            t_case, best0.shape[0],
             index_bytes=nspan.numel() * 4 + 2 * int(visited.sum()) * 4)
         ms = cuda_ms(lambda: sw.sweep(*kargs[:4], best0.clone(), kargs[5]))
         plain_ms = cuda_ms(lambda: sw.sweep_plain(*kargs), repeats=2)
         clone_ms = cuda_ms(lambda: best0.clone())
-        k1[name] = dict(err=err, ms=ms, plain_ms=plain_ms, bound=bound)
-        print(f"K1 sweep {name}: {best0.shape[0]} rays "
-              f"({int(rays[2].sum())} live), {spans.shape[0]} tiles, "
+        k1[name] = dict(err=err, ms=ms, plain_ms=plain_ms, bound=bound,
+                        clone_ms=clone_ms)
+        ctas = nvcc.load("sweep").sweep_cluster_size(spans.shape[0], t_case)
+        print(f"K1 sweep {name}: {best0.shape[0]} rays ({live} live), "
+              f"{spans.shape[0]} tiles x {ctas} CTA(s), T {t_case}, "
               f"spans/tile overlapped mean {nspan.float().mean().item():.1f}"
-              f" max {int(nspan.max())}, visited {int(visited.sum())} | "
+              f" max {int(nspan.max())}, visited {int(visited.sum())} (max "
+              f"{int(visited.max())} on one tile) | "
               f"hit/miss agree {agree:.6f}, tri agree {tri_agree:.6f}, "
               f"max |dt| {err:.3g} | kernel {ms:.3f} ms (incl. "
               f"{clone_ms:.3f} ms record copy), plain {plain_ms:.3f} ms, "
               f"bound {bound[0]:.4f} ms by {bound[1]} (operations "
               f"{bound[2]:.4f} ms, bytes {bound[3]:.4f} ms)")
+
+    # the primary cast, the first bounce's merged pair, and the merged pair
+    # of a deep bounce: few rays whose tiles overlap many clusters
+    for name, rays in (("primary", (origin, direction, ones,
+                                    torch.zeros_like(ones))),
+                       ("pair", merged(captured[0])),
+                       (f"deep pair (bounce {DEEP_BOUNCE - 1})",
+                        merged(captured[-1]))):
+        kargs, _ = sw.sweep_inputs(scene, *rays)
+        k1_case(name, kargs, int(rays[2].sum()))
     if w != RAYS_PER_TILE:
         print(f"note: the first bounce's pair holds {w} shadow + "
               f"{o_cls.shape[0]} bounce rays")
+
+    # ragged T: the primary cast against cluster blocks cut to RAGGED_T
+    # triangles (not a multiple of 4: the kernel's unaligned staging path)
+    kargs, _ = sw.sweep_inputs(scene, origin, direction, ones,
+                               torch.zeros_like(ones))
+    cut = scene.cl_trifeat.reshape(n_clusters, 16, 4, t_blk)[..., :RAGGED_T]
+    cut = cut.reshape(n_clusters, 16, 4 * RAGGED_T).contiguous()
+    k1_case("primary, ragged T", (*kargs[:5], cut), RAYS_PER_TILE,
+            slot2tri.reshape(n_clusters, t_blk)[:, :RAGGED_T].reshape(-1))
+
+    # span latency: G tiles of rays that hit nothing, every tile entry
+    # distance 0 and every cap INF, so no stop test fires and each tile
+    # walks exactly SPAN_WALK spans
+    far = torch.tensor([0.0, 1000.0, 0.0], device=dev)
+    up = torch.tensor([0.0, 1.0, 0.0], device=dev)
+    for n_tiles in (1, 132, 1024):
+        n = n_tiles * sw.TILE_R
+        best0 = ci.init_best(n, dev)
+        best0[:, 3] = sw.INF
+        walk = (torch.arange(n_tiles, device=dev)[:, None] * 7
+                + torch.arange(SPAN_WALK, device=dev)[None, :]) % n_clusters
+        spans = torch.zeros((n_tiles, n_clusters), dtype=torch.int32,
+                            device=dev)
+        spans[:, :SPAN_WALK] = walk.to(torch.int32)
+        name = f"span latency, {n_tiles} tile(s)"
+        k1_case(name, (
+            torch.full((n_tiles,), SPAN_WALK, dtype=torch.int32, device=dev),
+            spans, torch.zeros((n_tiles, n_clusters), device=dev),
+            sw.ray_features(far.expand(n, 3), up.expand(n, 3)), best0,
+            scene.cl_trifeat.contiguous()), n)
+        if int(sw.sweep_plain.visited.min()) != SPAN_WALK:
+            fail(f"K1 {name}: a tile stopped before {SPAN_WALK} spans")
+        c = k1[name]
+        print(f"K1 {name}: {(c['ms'] - c['clone_ms']) / SPAN_WALK * 1e3:.2f} "
+              f"us per span of a tile's walk ({SPAN_WALK} spans each)")
 
     # 4. K2 vs plain at the schedule path's shapes: every round of the
     # primary cast and of the first bounce's bounce cast is compared; the
@@ -764,6 +877,24 @@ def main() -> int:
                   f"(incl. record copy), plain {plain_ms:.3f} ms, bound "
                   f"{bound[0]:.4f} ms by {bound[1]} (operations "
                   f"{bound[2]:.4f} ms, bytes {bound[3]:.4f} ms)")
+        if cast == "bounce":
+            # the mean launch over all rounds of the cast, each on a fresh
+            # copy of its records: the figure that scales the pass
+            copies = [r[1].clone() for r in rounds]
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            for timed_run in (False, True):
+                start.record()
+                for r, rec in zip(rounds, copies):
+                    rec.copy_(r[1])
+                    ci.cluster_intersect(r[0], rec, *r[2:])
+                end.record()
+                torch.cuda.synchronize()
+            k2_mean_ms = start.elapsed_time(end) / len(rounds)
+            print(f"K2 cluster_intersect {cast}: mean launch over the "
+                  f"{len(rounds)} rounds {k2_mean_ms:.4f} ms (incl. record "
+                  f"copy), elected spans per round mean "
+                  f"{sum(n_elected) / len(rounds):.1f} max {max(n_elected)}")
     # the kernels line reports the call with the most work
     k2_main = max(k2, key=lambda name: (k2[name]["visits"], k2[name]["ms"]))
 
@@ -878,6 +1009,7 @@ def main() -> int:
 
     if args.profile:
         profile_pass("sweep", ortf, scene, camera, config)
+        profile_k1_casts(ortf, sw, scene, camera, config)
         profile_pass("schedule", ortf, scene, camera, sched_config)
 
     def entry(name, replaces, launches, cases, main_case):

@@ -15,100 +15,176 @@
 //   place; columns 3..7 are left as given.
 //
 // The TPU kernel's grid is (tile, j) and revisits a tile's record block
-// once per j while it stays resident in fast memory. Here j is a loop
-// inside the block: one CTA of 128 threads owns 128 rays (one per thread)
-// of one tile, keeps t / slot / inside in registers across the K spans and
-// writes them once.
+// once per j while it stays resident in fast memory. Here a block of 128
+// rays of one tile belongs to a thread-block cluster of 1-8 CTAs (the size
+// follows from the number of ray blocks alone); j is a loop inside each
+// CTA, which tests T/size triangle columns of every elected span.
 //
-// What bounds it on this card: per visited span and CTA, 41*T*4 bytes of
-// the cluster block come from L2 (or HBM on first touch) into shared memory
-// against 128*T*40 FP32 FMAs on the CUDA cores, 31 FMAs (62 FLOPs) per
-// byte: above the card's FP32-rate-to-memory-rate ratio, so the FMAs are
-// the bound and the copy is not (an 82k-triangle scene's 31.7 MB trifeat
-// also fits the 50 MB L2). What the design does about it: one contiguous float4
-// copy per span, shared-memory reads that are warp-wide broadcasts (every
-// thread reads the same triangle), the ray's 10 features in registers, and
-// spans skipped block-uniformly. The copy is not overlapped with the
-// triangle loop and each FMA still costs one shared-memory load; both are
-// later work.
+// What bounds it on this card: the FP32 instruction rate of the SMs that hold a
+// busy tile. Per span and ray block 41*T*4 bytes come from L2 against
+// 128*T*40 FP32 FMAs, 31 FMAs per byte, and an 82k-triangle scene's 31.7
+// MB trifeat fits the 50 MB L2: the copy is not the bound, its latency was
+// (a first design copied and tested a tile's up to 8 spans one after the
+// other, a thread per ray, at 40-53 us per span: 0.32-0.36 ms for the mean
+// launch of a pass). What the design does about it: the span body of
+// mt_span.cuh (8 warps, 4 x 4 register tiles, 16-byte shared-memory
+// broadcasts, 10.7 us per span on one CTA); the elected spans stream
+// through two buffers filled by cp.async.bulk, the next one in flight
+// under the FMAs; and, with no stop test, nothing is exchanged per span:
+// each thread keeps its rays' least key (t, j, k) over all spans, and the
+// warps and the cluster's CTAs meet once, at the end. The key orders equal
+// t by span position j and then lane k, which is the tie rule of the loop
+// over j. The mean launch of a bounce cast's rounds is 0.054 ms, of a
+// whole schedule pass 0.026 ms (NVIDIA H100 80GB HBM3, 700 W,
+// chip_smoke.py phase 4 and --profile).
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include "mt_span.cuh"
 
 namespace {
 
+namespace cg = cooperative_groups;
+
 using mt::BEST_W;
+using mt::CTA_THREADS;
+using mt::Key;
 using mt::N_FEAT;
+using mt::RAYS_PER_THREAD;
+using mt::STAGES;
 using mt::TILE_R;
 using mt::USED_ROWS;
 
-__global__ void __launch_bounds__(TILE_R)
+// first position >= j of the span list that names a cluster, or limit
+__device__ __forceinline__ int next_span(const int* span_row, int j, int limit,
+                                         int n_clusters) {
+  while (j < limit && (span_row[j] < 0 || span_row[j] >= n_clusters)) ++j;
+  return j;
+}
+
+__global__ void __launch_bounds__(CTA_THREADS, 1)
 cluster_intersect_kernel(const float* __restrict__ rayfeat,
                          float* __restrict__ best,
                          const int* __restrict__ spans,
                          const int* __restrict__ nspan,
                          const float* __restrict__ trifeat,
                          int rays_per_tile, int n_spans, int n_clusters,
-                         int t_blk) {
-  extern __shared__ float4 smem4[];
-  float* tf = reinterpret_cast<float*>(smem4);
-
+                         int t_blk, int tc) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int size = cluster.num_blocks();
+  const int rank = cluster.block_rank();
   const int tid = threadIdx.x;
-  const long long first = static_cast<long long>(blockIdx.x) * TILE_R;
-  const long long ray = first + tid;
-  // rays_per_tile is a multiple of TILE_R: the CTA lies inside one tile
+  const int lane = tid & 31;
+  const int grp = tid >> 5;   // the warp: its share of a span's triangles
+  const long long first = static_cast<long long>(blockIdx.x / size) * TILE_R;
+  // rays_per_tile is a multiple of TILE_R: the ray block lies in one tile
   const int g = static_cast<int>(first / rays_per_tile);
   const int limit = min(nspan[g], n_spans);
-  if (limit <= 0) return;   // block-uniform: the records stay as given
+  const int* span_row = spans + static_cast<size_t>(g) * n_spans;
+  // cluster-uniform: without a span the records stay as given
+  int jc = next_span(span_row, 0, limit, n_clusters);
+  if (jc >= limit) return;
 
-  float f[USED_ROWS];
-#pragma unroll
-  for (int i = 0; i < USED_ROWS; ++i) f[i] = rayfeat[ray * N_FEAT + i];
-
-  float* rec = best + ray * BEST_W;
-  float best_t = rec[0];
-  int best_slot = static_cast<int>(rec[1]);
-  float best_in = rec[2];
+  const mt::Smem sm = mt::carve(smem_raw);
+  const bool bulk = (t_blk & 3) == 0;
+  const int stride = bulk ? t_blk : tc;   // floats per run in a span buffer
+  mt::init_smem(sm, bulk, cluster, tid);
 
   const size_t block = static_cast<size_t>(N_FEAT) * 4 * t_blk;
-  const int* span_row = spans + static_cast<size_t>(g) * n_spans;
-
-  for (int j = 0; j < limit; ++j) {
-    const int cid = span_row[j];
-    if (cid < 0 || cid >= n_clusters) continue;   // block-uniform skip
-    __syncthreads();   // every thread is done reading the previous span
-    mt::load_span(tf, trifeat + static_cast<size_t>(cid) * block, t_blk, tid);
-    __syncthreads();
-    mt::intersect_span(tf, f, cid, t_blk, best_t, best_slot, best_in);
+  int jp = jc;      // next position whose copy has not been started
+  if (bulk) {
+    for (int s = 0; s < STAGES && jp < limit; ++s) {
+      if (tid == 0)
+        mt::stage_bulk(mt::span_buffer(sm, s), sm.bar + s,
+                       trifeat + span_row[jp] * block, t_blk);
+      jp = next_span(span_row, jp + 1, limit, n_clusters);
+    }
   }
 
-  rec[0] = best_t;
-  rec[1] = static_cast<float>(best_slot);
-  rec[2] = best_in;
+  // a thread's rays: lane + 32 r of the block, the same in every warp
+  float f[RAYS_PER_THREAD][USED_ROWS];
+  const long long ray0 = first + lane;
+#pragma unroll
+  for (int r = 0; r < RAYS_PER_THREAD; ++r)
+#pragma unroll
+    for (int i = 0; i < USED_ROWS; ++i)
+      f[r][i] = rayfeat[(ray0 + 32 * r) * N_FEAT + i];
+
+  Key key[RAYS_PER_THREAD];
+#pragma unroll
+  for (int r = 0; r < RAYS_PER_THREAD; ++r) key[r] = mt::NO_HIT;
+
+  int slot = 0;
+  uint32_t parity = 0;
+  while (jc < limit) {
+    float* buf = mt::span_buffer(sm, slot);
+    if (bulk) {
+      mt::mbar_wait(sm.bar + slot, parity);
+    } else {
+      mt::stage_ragged(buf, trifeat + span_row[jc] * block, t_blk, tc, tid);
+      __syncthreads();
+    }
+    mt::intersect_share(buf, stride, rank * tc, tc,
+                        static_cast<uint32_t>(jc) << (mt::KEY_LANE_BITS + 1),
+                        grp, f, key);
+    jc = next_span(span_row, jc + 1, limit, n_clusters);
+    if (jc >= limit) break;   // the reduction's barrier ends the last span
+    __syncthreads();          // the buffer is free
+    if (bulk && jp < limit) {
+      if (tid == 0)
+        mt::stage_bulk(buf, sm.bar + slot, trifeat + span_row[jp] * block,
+                       t_blk);
+      jp = next_span(span_row, jp + 1, limit, n_clusters);
+    }
+    if (++slot == STAGES) {
+      slot = 0;
+      parity ^= 1;
+    }
+  }
+
+  mt::reduce_keys(key, sm, 0, cluster, tid);
+
+  if (rank == 0 && grp == 0) {
+#pragma unroll
+    for (int r = 0; r < RAYS_PER_THREAD; ++r) {
+      float* rec = best + (ray0 + 32 * r) * BEST_W;
+      if (mt::closer(key[r], rec[0])) {
+        rec[0] = mt::key_time(key[r]);
+        rec[1] = static_cast<float>(span_row[mt::key_span(key[r])] * t_blk
+                                    + mt::key_lane(key[r]));
+        rec[2] = mt::key_inside(key[r]);
+      }
+    }
+  }
 }
 
 }  // namespace
 
 extern "C" int cluster_intersect_block_rays() { return TILE_R; }
 
+// Span positions a key can name: K beyond it is refused by the wrapper.
+extern "C" int cluster_intersect_max_spans() {
+  return 1 << (32 - mt::KEY_LANE_BITS - 1);
+}
+
 // rayfeat (R, 16) f32; best (R, 8) f32, updated in place; spans (G, K) i32;
 // nspan (G,) i32; trifeat (C, 16, 4T) f32; R = G * rays_per_tile and
-// rays_per_tile a multiple of 128. Launches on `stream` and returns
-// cudaGetLastError().
+// rays_per_tile a multiple of 128. Launches on `stream` and returns the
+// CUDA error of the launch (0: none).
 extern "C" int cluster_intersect_launch(const float* rayfeat, float* best,
                                         const int* spans, const int* nspan,
                                         const float* trifeat, int n_rays,
                                         int rays_per_tile, int n_spans,
                                         int n_clusters, int t_blk,
                                         void* stream) {
-  if (n_rays > 0 && n_spans > 0) {
-    const size_t smem_bytes =
-        static_cast<size_t>(mt::span_floats(t_blk)) * sizeof(float);
-    cluster_intersect_kernel<<<n_rays / TILE_R, TILE_R, smem_bytes,
-                               static_cast<cudaStream_t>(stream)>>>(
-        rayfeat, best, spans, nspan, trifeat, rays_per_tile, n_spans,
-        n_clusters, t_blk);
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (n_rays <= 0 || n_spans <= 0)
+    return static_cast<int>(cudaGetLastError());
+  const int n_blocks = n_rays / TILE_R;
+  const mt::Cut cut = mt::cut_launch(n_blocks, t_blk);
+  return static_cast<int>(mt::launch(
+      cluster_intersect_kernel, n_blocks, cut,
+      static_cast<cudaStream_t>(stream), rayfeat, best, spans, nspan, trifeat,
+      rays_per_tile, n_spans, n_clusters, t_blk, cut.tc));
 }

@@ -1,89 +1,432 @@
-// One span of the cluster kernels: a ray against the T triangles of one
-// cluster block held in shared memory. Shared by sweep.cu and
-// cluster_intersect.cu so the two kernels cannot drift apart.
+// The span machinery shared by the two cluster kernels, sweep.cu (K1) and
+// cluster_intersect.cu (K2), for Hopper (sm_90a): how one span (a ray tile
+// against the T triangles of one cluster block) is staged, intersected and
+// reduced. One body, so the two kernels cannot drift apart.
 //
-// The block in shared memory is the first 41*T floats of trifeat[c]
-// (models/clusters.py): rows 0..9 of the four T-column groups
-// [A | TN | U | V], then row 10 (the parallel threshold E) of group A.
-// rayfeat rows 10..15 are always 0, so only rows 0..9 enter the
-// contraction: 40 FP32 FMAs per ray x triangle on the CUDA cores. The
-// contraction never goes to TF32 tensor cores: a 10-bit mantissa on t is
-// the precision class that shows as self-intersection acne.
+// A cluster block is the first 41*T floats of trifeat[c]
+// (models/clusters.py), a (41, T) matrix: rows 0..9 of the four T-column
+// groups [A | TN | U | V] (piece p = 4 * row + group starts at float p*T),
+// then row 10 (the parallel threshold E) of group A as piece 40. rayfeat
+// rows 10..15 are always 0, so only rows 0..9 enter the contraction: 40
+// FP32 FMAs per ray x triangle on the CUDA cores. The contraction never
+// goes to TF32 tensor cores: a 10-bit mantissa on t is the precision class
+// that shows as self-intersection acne.
+//
+// What bounds a span on this card is the FP32 instruction rate of one SM: 128
+// rays x 256 triangles x 40 FMAs over 128 lanes is 10,240 cycles, ~5.2 us
+// at 1.98 GHz, and the test of each pair costs another ~8 instructions;
+// the 41 KB block comes from L2 in 1-2 us. A first design (a thread per
+// ray, one scalar shared-memory load per FMA, four warps, a synchronous
+// copy) took 53.3 us per span of a tile's walk. This design takes 10.7 us
+// with one CTA on the tile and 2.8 us with a cluster of 8 (NVIDIA H100
+// 80GB HBM3, 700 W; chip_smoke.py's span-latency cases):
+//   * a CTA of 8 warps; a warp holds the tile's 128 rays, four to a
+//     thread, and takes every eighth quad of triangles: a 4 x 4 register
+//     tile of 64 independent FMA chains fed by four 16-byte shared-memory
+//     loads per row (every lane reads the same address: a broadcast), so
+//     one load feeds 16 FMAs where it fed one;
+//   * the test is predicated and outside the contraction: sign flips by
+//     bit operations, one branch per ray and quad, the division only under
+//     the (rare) hit;
+//   * spans arrive through a ring of two shared-memory buffers, each
+//     filled by ONE cp.async.bulk of the whole block with completion on an
+//     mbarrier, so the copy of the next span runs under the FMAs of this
+//     one (the copy engine charges by the request, not by the byte: 41
+//     requests of one run each cost more than the span's FMAs);
+//   * a thread-block cluster of 1, 2, 4 or 8 CTAs shares a tile: every CTA
+//     stages the whole block (it comes from L2) and CTA r tests columns
+//     [r * T/size, (r + 1) * T/size); the per-ray results meet through
+//     distributed shared memory and one cluster barrier per reduction
+//     (at size 8 most of a span's 2.8 us are the barriers and the
+//     exchange: the walk of one tile scales 3.8x on 8 SMs).
+// Numerics are those of the first design bit for bit: each of A, TN, U, V
+// is the same chain of ten fmaf over rows 0..9, the same tests, the IEEE
+// division tn / a and the 1e-5 pullback. A ray's result of a span is the
+// least key (t bits, span position, lane k, inside bit) as one unsigned
+// 64-bit integer: t > 0, so its float bits order as integers, and the
+// lowest lane (and the earlier span) keeps a tie in whatever order the
+// groups of triangles are reduced.
 
 #pragma once
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+#include <math_constants.h>
+#include <stdint.h>
 
 namespace mt {
 
-constexpr int TILE_R = 128;     // rays per CTA, one per thread
+namespace cg = cooperative_groups;
+
+constexpr int TILE_R = 128;     // rays per tile; must match ops/sweep.py
 constexpr int N_FEAT = 16;      // rayfeat width
 constexpr int BEST_W = 8;       // best-record width
 constexpr int USED_ROWS = 10;   // rayfeat rows 10..15 are always 0
+constexpr int PIECES = 4 * USED_ROWS + 1;   // T-float runs of a cluster block
+constexpr int MAX_BLOCK_TRIS = 256;         // T of the widest cluster block
+constexpr int RAYS_PER_THREAD = 4;          // a warp holds the whole tile
+constexpr int TRIS_PER_STEP = 4;            // triangle columns per load
+constexpr int TRI_GROUPS = 8;               // warps of a CTA
+constexpr int CTA_THREADS = 32 * TRI_GROUPS;
+constexpr int STAGES = 2;                   // span buffers of a CTA's ring
+constexpr int KEY_TURNS = 3;                // key boxes in rotation
+constexpr int MAX_CLUSTER = 8;              // CTAs sharing one tile
+constexpr int KEY_LANE_BITS = 9;            // lane k < 512 in a key
 constexpr float INF_T = 114514.0f;
 constexpr float T_MIN = 0.0005f;
 
-// floats of one cluster block that a span reads
-__host__ __device__ constexpr int span_floats(int t_blk) {
-  return USED_ROWS * 4 * t_blk + t_blk;
+static_assert(32 * RAYS_PER_THREAD == TILE_R, "a warp holds one tile");
+
+using Key = unsigned long long;
+constexpr Key NO_HIT = ~0ull;
+
+// ---------------------------------------------------------------------------
+// How a launch is cut: cluster size, triangle columns per CTA
+// ---------------------------------------------------------------------------
+
+struct Cut {
+  int cluster;   // CTAs per tile
+  int tc;        // triangle columns of each span a CTA tests (multiple of 4)
+};
+
+// a span buffer holds one whole cluster block, 41 runs of up to 256 floats
+constexpr size_t RING_BYTES =
+    sizeof(float) * STAGES * PIECES * MAX_BLOCK_TRIS;
+constexpr size_t SMEM_BYTES =
+    RING_BYTES + sizeof(Key) * TILE_R * (KEY_TURNS + 2 * MAX_CLUSTER)
+    + sizeof(uint64_t) * STAGES;
+
+// Cluster size from the number of tiles alone (a shape): while a launch
+// has at most 1, 2 or 4 tiles per SM, 8, 4 or 2 CTAs share each tile, each
+// testing T/size columns of every span; beyond that the tiles fill the
+// card by themselves. The columns are cut in steps of TRIS_PER_STEP; a T
+// that is no multiple of 4 takes one CTA and the element-wise staging into
+// a buffer padded to a multiple of 4.
+static Cut cut_launch(int n_tiles, int t_blk) {
+  static int n_sms = 0;
+  if (n_sms == 0) {
+    int device = 0;
+    if (cudaGetDevice(&device) != cudaSuccess
+        || cudaDeviceGetAttribute(&n_sms, cudaDevAttrMultiProcessorCount,
+                                  device) != cudaSuccess)
+      n_sms = 132;
+  }
+  Cut c;
+  if (t_blk % 4) {
+    c.cluster = 1;
+    c.tc = (t_blk + 3) / 4 * 4;
+    return c;
+  }
+  c.cluster = n_tiles <= n_sms ? 8 : n_tiles <= 2 * n_sms ? 4
+              : n_tiles <= 4 * n_sms ? 2 : 1;
+  while (c.cluster > 1 && t_blk % (TRIS_PER_STEP * c.cluster)) c.cluster >>= 1;
+  c.tc = t_blk / c.cluster;
+  return c;
 }
 
-// Copy the used part of one cluster block (src = trifeat + c * 16 * 4T)
-// into shared memory: float4 for the bulk, scalars for a ragged tail.
-// The caller synchronises the CTA before (the previous span is no longer
-// read) and after (the copy is visible).
-__device__ __forceinline__ void load_span(float* tf, const float* src,
-                                          int t_blk, int tid) {
-  const int n_used = span_floats(t_blk);
-  const int n4 = n_used / 4;
-  float4* tf4 = reinterpret_cast<float4*>(tf);
-  const float4* src4 = reinterpret_cast<const float4*>(src);
-  for (int i = tid; i < n4; i += TILE_R) tf4[i] = src4[i];
-  for (int i = 4 * n4 + tid; i < n_used; i += TILE_R) tf[i] = src[i];
+// Launch `kernel` on n_tiles * cut.cluster CTAs in clusters of cut.cluster.
+// Returns the error of a refused shared-memory request or launch. Internal
+// linkage: `granted` belongs to this library's kernel, and a second loaded
+// copy of the library must not share it.
+template <typename... Params, typename... Args>
+static cudaError_t launch(void (*kernel)(Params...), int n_tiles,
+                          const Cut& cut, cudaStream_t stream, Args... args) {
+  static bool granted = false;
+  if (!granted) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(SMEM_BYTES));
+    if (err != cudaSuccess) return err;
+    granted = true;
+  }
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = cut.cluster;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(n_tiles * cut.cluster);
+  config.blockDim = dim3(CTA_THREADS);
+  config.dynamicSmemBytes = SMEM_BYTES;
+  config.stream = stream;
+  config.attrs = &attr;
+  config.numAttrs = 1;
+  cudaError_t err = cudaLaunchKernelEx(&config, kernel, args...);
+  return err != cudaSuccess ? err : cudaGetLastError();
 }
 
-// Det-scaled Moller-Trumbore of one ray (features f) against the T
-// triangles in tf, folded into the ray's best record: |A| > E, strict
-// interior, t >= T_MIN, the 1e-5 pullback; the lowest lane wins inside a
-// span and a later span must be strictly closer.
-__device__ __forceinline__ void intersect_span(
-    const float* tf, const float (&f)[USED_ROWS], int cid, int t_blk,
-    float& best_t, int& best_slot, float& best_in) {
-  const int row = 4 * t_blk;                  // floats per trifeat row
-  float tmin = INF_T;
-  int kmin = t_blk;
-  float a_win = 0.0f;
-  const float* eps_row = tf + USED_ROWS * row;
-  for (int k = 0; k < t_blk; ++k) {
-    float a = 0.0f, tn = 0.0f, u = 0.0f, v = 0.0f;
+// ---------------------------------------------------------------------------
+// Device side
+// ---------------------------------------------------------------------------
+
+// A CTA's dynamic shared memory: the ring of span buffers, three boxes of
+// per-ray keys in rotation, two inboxes of the cluster's keys, one
+// mbarrier per span buffer.
+struct Smem {
+  float* ring;     // [STAGES][PIECES * MAX_BLOCK_TRIS]
+  Key* box;        // [KEY_TURNS][TILE_R]
+  Key* inbox;      // [2][MAX_CLUSTER][TILE_R]
+  uint64_t* bar;   // [STAGES]
+};
+
+__device__ __forceinline__ Smem carve(unsigned char* base) {
+  Smem s;
+  s.ring = reinterpret_cast<float*>(base);
+  s.box = reinterpret_cast<Key*>(base + RING_BYTES);
+  s.inbox = s.box + KEY_TURNS * TILE_R;
+  s.bar = reinterpret_cast<uint64_t*>(s.inbox + 2 * MAX_CLUSTER * TILE_R);
+  return s;
+}
+
+__device__ __forceinline__ float* span_buffer(const Smem& sm, int slot) {
+  return sm.ring + slot * (PIECES * MAX_BLOCK_TRIS);
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int arrivals) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_addr(bar)),
+               "r"(arrivals)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// Spin until the barrier's phase of the given parity has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_addr(bar);
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// Set up the CTA's barriers and key boxes; ends in a cluster barrier, so
+// that every CTA of the cluster runs, with clean boxes, before any of them
+// writes into another's shared memory.
+__device__ __forceinline__ void init_smem(const Smem& sm, bool bulk,
+                                          cg::cluster_group& cluster,
+                                          int tid) {
+  if (bulk && tid == 0) {
+    for (int s = 0; s < STAGES; ++s) mbar_init(sm.bar + s, 1);
+    mbar_fence_init();
+  }
+  for (int i = tid; i < KEY_TURNS * TILE_R; i += CTA_THREADS)
+    sm.box[i] = NO_HIT;
+  cluster.sync();
+}
+
+// One thread starts the copy of a whole cluster block (block = trifeat +
+// c * 16 * 4T, T a multiple of 4: 41 * T contiguous, 16-byte aligned
+// floats) into `buf` as one bulk asynchronous copy; the block has landed
+// when `bar` completes its phase. One request: the copy engine charges by
+// the request, and 41 requests of one run each cost more than the span's
+// FMAs.
+__device__ __forceinline__ void stage_bulk(float* buf, uint64_t* bar,
+                                           const float* block, int t_blk) {
+  const uint32_t bytes = PIECES * t_blk * sizeof(float);
+  mbar_expect_tx(bar, bytes);
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(buf)),
+      "l"(block), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// The whole CTA copies a cluster block whose T is no multiple of 4 into a
+// buffer of tp = roundup(T, 4) columns; the pad lanes get E = +inf and can
+// never hit. The caller synchronises the CTA before and after.
+__device__ __forceinline__ void stage_ragged(float* buf, const float* block,
+                                             int t_blk, int tp, int tid) {
+  for (int idx = tid; idx < PIECES * tp; idx += CTA_THREADS) {
+    const int p = idx / tp;
+    const int k = idx - p * tp;
+    buf[idx] = k < t_blk ? block[p * t_blk + k]
+                         : (p == PIECES - 1 ? CUDART_INF_F : 0.0f);
+  }
+}
+
+// Det-scaled Moller-Trumbore epilogue of one ray x triangle: |A| > E and
+// the strict interior test ...
+__device__ __forceinline__ bool candidate(float a, float u, float v, float e) {
+  // u * s and v * s with s = -1 where a > 0, else +1: the sign of a, turned
+  // over, flips theirs (a = +0 fails |A| > E whatever the signs: E >= 0)
+  const uint32_t flip = ~__float_as_uint(a) & 0x80000000u;
+  const float us = __uint_as_float(__float_as_uint(u) ^ flip);
+  const float vs = __uint_as_float(__float_as_uint(v) ^ flip);
+  const float abs_a = fabsf(a);
+  return abs_a > e && us > 0.0f && vs > 0.0f && us + vs < abs_a;
+}
+
+// ... then, for a candidate, t >= T_MIN and the 1e-5 pullback. `low` is the
+// key's low word without the inside bit.
+__device__ __forceinline__ void record(float a, float tn, uint32_t low,
+                                       Key& key) {
+  const float t = tn / a;
+  if (t >= T_MIN) {
+    const float tm = t - 1e-5f;
+    const Key cand = (static_cast<Key>(__float_as_uint(tm)) << 32) | low
+                     | (a > 0.0f ? 1u : 0u);
+    if (cand < key) key = cand;
+  }
+}
+
+__device__ __forceinline__ void load_cols(const float* p,
+                                          float (&c)[TRIS_PER_STEP]) {
+  static_assert(TRIS_PER_STEP == 4, "one 16-byte load per step");
+  const float4 x = *reinterpret_cast<const float4*>(p);
+  c[0] = x.x, c[1] = x.y, c[2] = x.z, c[3] = x.w;
+}
+
+// The rays of one thread (features f) against this warp's steps of the
+// columns [col0, col0 + tc) of the cluster block in tf (41 runs of `stride`
+// floats), folded into the rays' keys. `span_bits` is the span's position
+// already shifted into the key.
+__device__ __forceinline__ void intersect_share(
+    const float* tf, int stride, int col0, int tc, uint32_t span_bits,
+    int grp, const float (&f)[RAYS_PER_THREAD][USED_ROWS],
+    Key (&key)[RAYS_PER_THREAD]) {
+  constexpr int TW = TRIS_PER_STEP;
+  for (int k = col0 + TW * grp; k < col0 + tc; k += TW * TRI_GROUPS) {
+    float a[RAYS_PER_THREAD][TW], tn[RAYS_PER_THREAD][TW],
+        u[RAYS_PER_THREAD][TW], v[RAYS_PER_THREAD][TW];
+#pragma unroll
+    for (int r = 0; r < RAYS_PER_THREAD; ++r)
+#pragma unroll
+      for (int c = 0; c < TW; ++c) a[r][c] = tn[r][c] = u[r][c] = v[r][c] = 0.0f;
+    const float* col = tf + k;
 #pragma unroll
     for (int i = 0; i < USED_ROWS; ++i) {
-      const float* r = tf + i * row + k;
-      a = fmaf(f[i], r[0], a);
-      tn = fmaf(f[i], r[t_blk], tn);
-      u = fmaf(f[i], r[2 * t_blk], u);
-      v = fmaf(f[i], r[3 * t_blk], v);
+      float ca[TW], ctn[TW], cu[TW], cv[TW];
+      load_cols(col + (4 * i + 0) * stride, ca);
+      load_cols(col + (4 * i + 1) * stride, ctn);
+      load_cols(col + (4 * i + 2) * stride, cu);
+      load_cols(col + (4 * i + 3) * stride, cv);
+#pragma unroll
+      for (int r = 0; r < RAYS_PER_THREAD; ++r)
+#pragma unroll
+        for (int c = 0; c < TW; ++c) {
+          a[r][c] = fmaf(f[r][i], ca[c], a[r][c]);
+          tn[r][c] = fmaf(f[r][i], ctn[c], tn[r][c]);
+          u[r][c] = fmaf(f[r][i], cu[c], u[r][c]);
+          v[r][c] = fmaf(f[r][i], cv[c], v[r][c]);
+        }
     }
-    const float abs_a = fabsf(a);
-    if (!(abs_a > eps_row[k])) continue;          // parallel (or pad)
-    const float s = a > 0.0f ? -1.0f : 1.0f;
-    const float us = u * s;
-    const float vs = v * s;
-    if (!(us > 0.0f && vs > 0.0f && us + vs < abs_a)) continue;
-    const float t = tn / a;
-    if (!(t >= T_MIN)) continue;
-    const float tm = t - 1e-5f;
-    if (tm < tmin) {   // strict: the lowest lane keeps a tie
-      tmin = tm;
-      kmin = k;
-      a_win = a;
+    float e[TW];
+    load_cols(col + (PIECES - 1) * stride, e);
+    const uint32_t low = span_bits | (static_cast<uint32_t>(k) << 1);
+#pragma unroll
+    for (int r = 0; r < RAYS_PER_THREAD; ++r) {
+      // one branch per ray and step: candidates are rare
+      bool cand[TW], any = false;
+#pragma unroll
+      for (int c = 0; c < TW; ++c) {
+        cand[c] = candidate(a[r][c], u[r][c], v[r][c], e[c]);
+        any |= cand[c];
+      }
+      if (any) {
+#pragma unroll
+        for (int c = 0; c < TW; ++c)
+          if (cand[c]) record(a[r][c], tn[r][c], low + 2 * c, key[r]);
+      }
     }
   }
-  if (tmin < INF_T && tmin < best_t) {
-    best_t = tmin;
-    best_slot = cid * t_blk + kmin;
-    best_in = a_win > 0.0f ? 1.0f : 0.0f;
+}
+
+// Every thread enters with the keys of its four rays (ray lane + 32 r of
+// the tile) over its own warp's triangles and leaves with the least key
+// over all warps of all CTAs of the cluster, the same in every thread
+// that holds the ray; `n` numbers the kernel's reductions from 0.
+//   1. A thread that holds a hit lowers the ray's key in the CTA's box of
+//      this turn (an atomic minimum in shared memory; hits are rare, most
+//      threads send nothing), and a CTA barrier makes the box whole. Three
+//      boxes rotate (turn = n mod 3): after the barriers of reduction n
+//      the box of turn n + 2 is wiped, which every thread of the CTA read
+//      during reduction n - 1 and none lowers before reduction n + 2.
+//   2. In a cluster, one thread per ray stores the box's key into its
+//      CTA's row of every CTA's inbox (distributed shared memory, plain
+//      stores, each row has one writer), one cluster barrier makes the
+//      stores visible, and every thread takes the least of the rows. Two
+//      inboxes alternate, so a CTA that runs ahead into the next reduction
+//      cannot overwrite keys still being read.
+// After the barriers no thread of the cluster reads the span buffers of
+// this reduction's spans any more.
+__device__ __forceinline__ void reduce_keys(Key (&key)[RAYS_PER_THREAD],
+                                            const Smem& sm, int n,
+                                            cg::cluster_group& cluster,
+                                            int tid) {
+  const int lane = tid & 31;
+  const int size = cluster.num_blocks();
+  const int turn = n % KEY_TURNS;
+  Key* box = sm.box + turn * TILE_R;
+#pragma unroll
+  for (int r = 0; r < RAYS_PER_THREAD; ++r)
+    if (key[r] != NO_HIT) atomicMin(box + lane + 32 * r, key[r]);
+  __syncthreads();
+  if (size == 1) {
+#pragma unroll
+    for (int r = 0; r < RAYS_PER_THREAD; ++r) key[r] = box[lane + 32 * r];
+  } else {
+    Key* inbox = sm.inbox + (n & 1) * MAX_CLUSTER * TILE_R;
+    if (tid < TILE_R) {
+      const Key mine = box[tid];
+      const int row = cluster.block_rank() * TILE_R + tid;
+      for (int d = 0; d < size; ++d)
+        cluster.map_shared_rank(inbox, d)[row] = mine;
+    }
+    cluster.sync();
+#pragma unroll
+    for (int r = 0; r < RAYS_PER_THREAD; ++r) {
+      Key m = NO_HIT;
+#pragma unroll
+      for (int s = 0; s < MAX_CLUSTER; ++s)
+        if (s < size) m = min(m, inbox[s * TILE_R + lane + 32 * r]);
+      key[r] = m;
+    }
   }
+  if (tid < TILE_R) sm.box[(n + 2) % KEY_TURNS * TILE_R + tid] = NO_HIT;
+}
+
+// Whether a reduced key is a hit strictly closer than a record's t.
+__device__ __forceinline__ bool closer(Key key, float best_t) {
+  const float t = __uint_as_float(static_cast<uint32_t>(key >> 32));
+  return key != NO_HIT && t < INF_T && t < best_t;
+}
+
+__device__ __forceinline__ float key_time(Key key) {
+  return __uint_as_float(static_cast<uint32_t>(key >> 32));
+}
+
+__device__ __forceinline__ int key_lane(Key key) {
+  return (static_cast<uint32_t>(key) >> 1) & ((1 << KEY_LANE_BITS) - 1);
+}
+
+__device__ __forceinline__ int key_span(Key key) {
+  return static_cast<uint32_t>(key) >> (KEY_LANE_BITS + 1);
+}
+
+__device__ __forceinline__ float key_inside(Key key) {
+  return (key & 1) ? 1.0f : 0.0f;
 }
 
 }  // namespace mt

@@ -4,43 +4,64 @@
 // TPU Pallas kernel every cast of the forward render goes through. Same
 // contract as the plain PyTorch version in ops/sweep.py (sweep_plain):
 //
-//   for each tile of TILE_R rays (one CTA, one thread per ray), walk the
-//   tile's nearest-first span list of clusters; for each span compute
-//   [A | TN | U | V] = rayfeat . trifeat[cluster] for all T triangles, run
-//   the det-scaled Moller-Trumbore test (|A| > E, strict interior,
-//   t >= T_MIN, t - 1e-5 pullback), keep each ray's minimum t (the lowest
-//   lane wins inside a span, a later span must be strictly closer), and
-//   stop when the next span's tile entry distance is >= the tile max of
-//   min(best_t, cap) over rays still live. A per-ray any-hit flag (record
-//   column 4) retires occluded rays from that max, so one launch serves
-//   closest-hit, any-hit and mixed (NEE shadow + bounce) batches.
+//   for each tile of TILE_R rays, walk the tile's nearest-first span list
+//   of clusters; for each span compute [A | TN | U | V] = rayfeat .
+//   trifeat[cluster] for all T triangles, run the det-scaled
+//   Moller-Trumbore test (|A| > E, strict interior, t >= T_MIN, t - 1e-5
+//   pullback), keep each ray's minimum t (the lowest lane wins inside a
+//   span, a later span must be strictly closer), and stop when the next
+//   span's tile entry distance is >= the tile max of min(best_t, cap) over
+//   rays still live. A per-ray any-hit flag (record column 4) retires
+//   occluded rays from that max, so one launch serves closest-hit, any-hit
+//   and mixed (NEE shadow + bounce) batches.
 //
-// What bounds it on this card: streaming each span's cluster block from
-// L2/DRAM into shared memory (41*T floats = 41 KB at T = 256, re-read by
-// every tile whose list names the cluster; the whole 31.7 MB trifeat of an
-// 82k-triangle scene fits the 50 MB L2), and FP32 FMA throughput: 40 FMAs
-// per ray x triangle for the contraction (rayfeat rows 10-15 are zero, so
-// only rows 0-9 are read) plus a division. The contraction stays on the
-// CUDA cores in true FP32: TF32 tensor cores keep a 10-bit mantissa, the
-// precision class that shows as self-intersection acne. What this first
-// design does about it: one contiguous vectorised (float4) copy per span
-// into shared memory, read back as warp-wide broadcasts (every thread of
-// the CTA reads the same triangle at the same time, so no bank conflicts),
-// the ray's 10 features held in registers, and the sweep's nearest-first
-// order plus the CTA-wide stop test to skip spans that cannot improve any
-// live ray. Double-buffering the span copy, several rays per thread and a
-// persistent grid are later work.
+// What bounds it on this card: a launch lasts as long as its longest
+// tile's walk, and that walk is a chain of spans, each bounded by one SM's
+// FP32 instruction rate (mt_span.cuh: 10,240 cycles of FMAs for 128 rays x 256
+// triangles, and the tests). The deep bounces of a render are a handful of
+// tiles that overlap ~100-240 clusters each while the rest of the card
+// idles. A first design (one CTA of 128 threads per tile, a thread per
+// ray, a synchronous copy per span) took 53.3 us per span: 5.11 ms on the
+// first bounce's merged cast and 12.07 ms on the 4 tiles of a bounce-4
+// cast. What this design does about it (mt_span.cuh has the span body):
+//   * the span: 8 warps, a 4 rays x 4 triangles register tile per thread
+//     fed by 16-byte shared-memory broadcasts, the test predicated, the
+//     division only under a hit: 10.7 us per span on one CTA;
+//   * the copy: two span buffers, each filled by one cp.async.bulk on an
+//     mbarrier, the next span of the list in flight under this span's
+//     FMAs; a prefetched span that the stop test then makes useless costs
+//     bandwidth only, and the CTA waits for it before it exits;
+//   * the walk: a thread-block cluster of 8, 4 or 2 CTAs per tile while the
+//     launch has at most 1, 2 or 4 tiles per SM (the size follows from the
+//     tile count alone), each CTA testing T/size triangle columns of every
+//     span. The rays' keys meet through distributed shared memory once per
+//     span, every CTA folds the same keys into the same records, so the
+//     stop test is uniform over the cluster without another exchange, and
+//     the walk visits exactly the spans the plain version visits: 2.8 us
+//     per span with 8 CTAs, 1.02 ms on the merged cast (1,024 tiles, one
+//     CTA each) and 0.69 ms on the bounce-4 cast (NVIDIA H100 80GB HBM3,
+//     700 W, chip_smoke.py phase 3).
+// The per-span cost beside the FMAs is a CTA barrier, in a cluster the key
+// exchange and a cluster barrier, and a warp-wide maximum for the stop
+// test: a warp holds the whole tile.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include "mt_span.cuh"
 
 namespace {
 
+namespace cg = cooperative_groups;
+
 using mt::BEST_W;
+using mt::CTA_THREADS;
 using mt::INF_T;
+using mt::Key;
 using mt::N_FEAT;
-using mt::TILE_R;       // rays per CTA; must match ops/sweep.py
+using mt::RAYS_PER_THREAD;
+using mt::STAGES;
+using mt::TILE_R;
 using mt::USED_ROWS;
 
 __device__ __forceinline__ float warp_max(float v) {
@@ -50,82 +71,157 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-// smem holds one span's cluster block (mt_span.cuh: 41*T floats).
-__global__ void __launch_bounds__(TILE_R)
+// Grid: cluster-size CTAs per tile, in clusters. tc = triangle columns of a
+// span per CTA (T / cluster size, or T rounded up to 4 when T is no
+// multiple of 4: then the cluster is one CTA and stages by hand).
+__global__ void __launch_bounds__(CTA_THREADS, 1)
 sweep_kernel(const int* __restrict__ nspan, const int* __restrict__ spans,
              const float* __restrict__ tile_sorted,
              const float* __restrict__ rayfeat, float* __restrict__ best,
-             const float* __restrict__ trifeat, int n_clusters, int t_blk) {
-  extern __shared__ float4 smem4[];
-  float* tf = reinterpret_cast<float*>(smem4);
-  __shared__ float warp_red[TILE_R / 32];
-
-  const int g = blockIdx.x;
+             const float* __restrict__ trifeat, int n_clusters, int t_blk,
+             int tc) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int size = cluster.num_blocks();
+  const int rank = cluster.block_rank();
+  const int g = blockIdx.x / size;
   const int tid = threadIdx.x;
-  const long long ray = static_cast<long long>(g) * TILE_R + tid;
+  const int lane = tid & 31;
+  const int grp = tid >> 5;   // the warp: its share of a span's triangles
   const int limit = nspan[g];
-  if (limit <= 0) return;   // block-uniform: the record stays as given
+  if (limit <= 0) return;   // cluster-uniform: the records stay as given
 
-  float f[USED_ROWS];
-#pragma unroll
-  for (int i = 0; i < USED_ROWS; ++i) f[i] = rayfeat[ray * N_FEAT + i];
-
-  float* rec = best + ray * BEST_W;
-  float best_t = rec[0];
-  int best_slot = static_cast<int>(rec[1]);
-  float best_in = rec[2];
-  const float cap = rec[3];
-  const bool anyflag = rec[4] > 0.5f;
+  const mt::Smem sm = mt::carve(smem_raw);
+  const bool bulk = (t_blk & 3) == 0;
+  const int stride = bulk ? t_blk : tc;   // floats per run in a span buffer
+  mt::init_smem(sm, bulk, cluster, tid);
 
   const size_t block = static_cast<size_t>(N_FEAT) * 4 * t_blk;
   const int* span_row = spans + static_cast<size_t>(g) * n_clusters;
   const float* tn_row = tile_sorted + static_cast<size_t>(g) * n_clusters;
 
-  for (int j = 0; j < limit; ++j) {
+  int started = 0;   // spans whose copy has been started (uniform)
+  if (bulk) {
+    started = min(STAGES, limit);
+    if (tid == 0)
+      for (int s = 0; s < started; ++s)
+        mt::stage_bulk(mt::span_buffer(sm, s), sm.bar + s,
+                       trifeat + span_row[s] * block, t_blk);
+  }
+
+  // a thread's rays: lane + 32 r of the tile, the same in every warp
+  float f[RAYS_PER_THREAD][USED_ROWS];
+  float best_t[RAYS_PER_THREAD], best_in[RAYS_PER_THREAD],
+      cap[RAYS_PER_THREAD];
+  int best_slot[RAYS_PER_THREAD];
+  bool anyflag[RAYS_PER_THREAD];
+  const long long ray0 = static_cast<long long>(g) * TILE_R + lane;
+#pragma unroll
+  for (int r = 0; r < RAYS_PER_THREAD; ++r) {
+    const long long ray = ray0 + 32 * r;
+#pragma unroll
+    for (int i = 0; i < USED_ROWS; ++i) f[r][i] = rayfeat[ray * N_FEAT + i];
+    const float* rec = best + ray * BEST_W;
+    best_t[r] = rec[0];
+    best_slot[r] = static_cast<int>(rec[1]);
+    best_in[r] = rec[2];
+    cap[r] = rec[3];
+    anyflag[r] = rec[4] > 0.5f;
+  }
+
+  int j = 0, slot = 0;
+  uint32_t parity = 0;
+  for (;; ++j) {
     const int cid = span_row[j];
-    __syncthreads();   // every thread is done reading the previous span
-    mt::load_span(tf, trifeat + static_cast<size_t>(cid) * block, t_blk, tid);
-    __syncthreads();
-    mt::intersect_span(tf, f, cid, t_blk, best_t, best_slot, best_in);
+    // read ahead of the FMAs what the end of the span needs
+    const bool last = j + 1 >= limit;
+    const float tn_next = last ? 0.0f : tn_row[j + 1];
+    const int cid_ahead = (bulk && j + STAGES < limit) ? span_row[j + STAGES]
+                                                       : -1;
+    float* buf = mt::span_buffer(sm, slot);
+    if (bulk) {
+      mt::mbar_wait(sm.bar + slot, parity);
+    } else {
+      mt::stage_ragged(buf, trifeat + cid * block, t_blk, tc, tid);
+      __syncthreads();
+    }
+
+    Key key[RAYS_PER_THREAD];
+#pragma unroll
+    for (int r = 0; r < RAYS_PER_THREAD; ++r) key[r] = mt::NO_HIT;
+    mt::intersect_share(buf, stride, rank * tc, tc, 0u, grp, f, key);
+    mt::reduce_keys(key, sm, j, cluster, tid);
+
+    // the buffer is free: start the copy of the span STAGES ahead
+    if (cid_ahead >= 0) {
+      if (tid == 0)
+        mt::stage_bulk(buf, sm.bar + slot, trifeat + cid_ahead * block, t_blk);
+      started = j + STAGES + 1;
+    }
 
     // stop test: the next span is needed only if its tile entry distance
     // is below some live ray's min(best_t, cap); occluded any-hit rays
-    // are no longer live
-    float live_t = (anyflag && best_slot >= 0) ? -INF_T : best_t;
-    live_t = fminf(live_t, cap);
-    live_t = warp_max(live_t);
-    if ((tid & 31) == 0) warp_red[tid >> 5] = live_t;
-    __syncthreads();
-    float thresh = warp_red[0];
+    // are no longer live. A warp holds the whole tile.
+    float live = -INF_T;
 #pragma unroll
-    for (int w = 1; w < TILE_R / 32; ++w) thresh = fmaxf(thresh, warp_red[w]);
-    const bool more = (j + 1 < limit) && (tn_row[j + 1] < thresh);
-    if (!more) break;   // block-uniform
-    __syncthreads();    // warp_red is rewritten by the next span
+    for (int r = 0; r < RAYS_PER_THREAD; ++r) {
+      if (mt::closer(key[r], best_t[r])) {
+        best_t[r] = mt::key_time(key[r]);
+        best_slot[r] = cid * t_blk + mt::key_lane(key[r]);
+        best_in[r] = mt::key_inside(key[r]);
+      }
+      const float live_t =
+          (anyflag[r] && best_slot[r] >= 0) ? -INF_T : best_t[r];
+      live = fmaxf(live, fminf(live_t, cap[r]));
+    }
+    const float thresh = warp_max(live);
+    if (last || !(tn_next < thresh)) break;   // cluster-uniform
+    if (++slot == STAGES) {
+      slot = 0;
+      parity ^= 1;
+    }
   }
 
-  rec[0] = best_t;
-  rec[1] = static_cast<float>(best_slot);
-  rec[2] = best_in;
+  // copies still in flight must land before the CTA gives up its memory
+  for (int jj = j + 1; jj < started; ++jj) {
+    if (++slot == STAGES) {
+      slot = 0;
+      parity ^= 1;
+    }
+    mt::mbar_wait(sm.bar + slot, parity);
+  }
+
+  if (rank == 0 && grp == 0) {
+#pragma unroll
+    for (int r = 0; r < RAYS_PER_THREAD; ++r) {
+      float* rec = best + (ray0 + 32 * r) * BEST_W;
+      rec[0] = best_t[r];
+      rec[1] = static_cast<float>(best_slot[r]);
+      rec[2] = best_in[r];
+    }
+  }
 }
 
 }  // namespace
 
 extern "C" int sweep_tile_rays() { return TILE_R; }
 
+// CTAs that share one tile in a launch of n_tiles tiles of T-triangle
+// cluster blocks.
+extern "C" int sweep_cluster_size(int n_tiles, int t_blk) {
+  return mt::cut_launch(n_tiles, t_blk).cluster;
+}
+
 // nspan (G,) i32; spans, tile_sorted (G, C); rayfeat (G*TILE_R, 16) f32;
 // best (G*TILE_R, 8) f32, updated in place; trifeat (C, 16, 4T) f32.
-// Launches on `stream` and returns cudaGetLastError().
+// Launches on `stream` and returns the CUDA error of the launch (0: none).
 extern "C" int sweep_launch(const int* nspan, const int* spans,
                             const float* tile_sorted, const float* rayfeat,
                             float* best, const float* trifeat, int n_tiles,
                             int n_clusters, int t_blk, void* stream) {
-  if (n_tiles > 0) {
-    const size_t smem_bytes =
-        static_cast<size_t>(mt::span_floats(t_blk)) * sizeof(float);
-    sweep_kernel<<<n_tiles, TILE_R, smem_bytes,
-                   static_cast<cudaStream_t>(stream)>>>(
-        nspan, spans, tile_sorted, rayfeat, best, trifeat, n_clusters, t_blk);
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (n_tiles <= 0) return static_cast<int>(cudaGetLastError());
+  const mt::Cut cut = mt::cut_launch(n_tiles, t_blk);
+  return static_cast<int>(mt::launch(
+      sweep_kernel, n_tiles, cut, static_cast<cudaStream_t>(stream), nspan,
+      spans, tile_sorted, rayfeat, best, trifeat, n_clusters, t_blk, cut.tc));
 }

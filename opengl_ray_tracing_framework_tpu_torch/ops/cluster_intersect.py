@@ -28,6 +28,7 @@ from .intersect import INF
 from .sweep import BEST_W, MAX_BLOCK_TRIS, N_FEAT, TILE_R, intersect_span_plain
 
 MAX_SLOTS = 1 << 24   # slot = c*T + k is kept in a float32: exact below 2^24
+MAX_SPANS = 1 << 22   # span positions the kernel's (t, j, k) key can name
 
 
 def init_best(n_rays: int, device) -> torch.Tensor:
@@ -95,9 +96,14 @@ def _declare(lib):
     lib.cluster_intersect_launch.argtypes = (
         [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
     lib.cluster_intersect_launch.restype = ctypes.c_int
+    lib.cluster_intersect_max_spans.argtypes = []
+    lib.cluster_intersect_max_spans.restype = ctypes.c_int
     if lib.cluster_intersect_block_rays() != TILE_R:
         raise RuntimeError(
             "csrc/mt_span.cuh TILE_R differs from ops/sweep.py")
+    if lib.cluster_intersect_max_spans() != MAX_SPANS:
+        raise RuntimeError(
+            "csrc/mt_span.cuh KEY_LANE_BITS differs from MAX_SPANS")
     return lib
 
 
@@ -127,6 +133,10 @@ def cluster_intersect(rayfeat, best, spans, nspan, trifeat):
         raise ValueError(
             f"cluster_intersect: cluster block of {t_blk} triangles; the "
             f"kernel takes at most {MAX_BLOCK_TRIS}")
+    if k > MAX_SPANS:
+        raise ValueError(
+            f"cluster_intersect: {k} spans per tile; the kernel takes at "
+            f"most {MAX_SPANS}")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = nvcc.load("cluster_intersect").cluster_intersect_launch(

@@ -18,7 +18,8 @@ the forward render (the primary cast and each bounce's merged NEE-shadow
        distance): a ray never needs a span beyond its own farthest
        candidate cluster.
 
-  kernel (sweep: csrc/sweep.cu on a CUDA tensor, sweep_plain on a CPU
+  kernel (sweep: csrc/sweep.cu on a CUDA tensor, a thread-block cluster
+  of 1-8 CTAs per tile by the launch's tile count; sweep_plain on a CPU
   tensor): per tile, walk the span list nearest first; per span intersect
   every ray with every triangle of the cluster through the bilinear
   feature form [A | TN | U | V] = rayfeat (R, 16) . trifeat (16, 4T)
@@ -44,11 +45,11 @@ from ..utils import nvcc
 from .intersect import INF, T_MIN, Hit
 from .sampling import _cross
 
-TILE_R = 128          # rays per kernel tile (= CTA); csrc/sweep.cu agrees
+TILE_R = 128          # rays per kernel tile; csrc/mt_span.cuh agrees
 N_FEAT = 16           # ray feature vector [o, d, o x d, 1, 0 x 6]
 BEST_W = 8            # record [t, slot, inside, cap, anyhit, 0, 0, 0]
 EPS_ROW = 10          # trifeat row carrying E in the A-group columns
-MAX_BLOCK_TRIS = 256  # the kernel's shared-memory span buffer holds 41*T f32
+MAX_BLOCK_TRIS = 256  # a shared-memory span buffer holds 41*256 f32
 _DEAD_KEY = 1 << 30   # sort key for rays that trace nothing
 _SLAB_CHUNK = 128 * TILE_R   # rays per slab-test chunk
 
@@ -205,6 +206,8 @@ def _declare(lib):
     lib.sweep_launch.argtypes = ([ctypes.c_void_p] * 6
                                  + [ctypes.c_int] * 3 + [ctypes.c_void_p])
     lib.sweep_launch.restype = ctypes.c_int
+    lib.sweep_cluster_size.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.sweep_cluster_size.restype = ctypes.c_int
     if lib.sweep_tile_rays() != TILE_R:
         raise RuntimeError(
             "csrc/mt_span.cuh TILE_R differs from ops/sweep.py")

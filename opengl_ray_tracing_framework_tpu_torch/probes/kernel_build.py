@@ -11,7 +11,8 @@ directory (never the build cache), the load of that fresh library and its
 first launch (the CUDA module load), and the steady launch. `run_ladder`
 then times the TPU file's ladder on the card: sweep_inputs alone, the
 sweep kernel alone on its saved inputs (no new kernel: it is
-csrc/sweep.cu), one closest cast, one any-hit cast, one trace_radiance
+csrc/sweep.cu, at 131,072 primary rays 1,024 tiles of one CTA and about
+one span each), one closest cast, one any-hit cast, one trace_radiance
 batch and one render_pass.
 """
 
