@@ -69,7 +69,31 @@ when torch sees no CUDA device, and when anything below fails:
     leaves to 2e-2: same hits, float order differs; camera and geometry
     at 2 bounces, where the gradients are well-conditioned); material_grad at 256x256, 8 bounces for brown_glass and
     white; one central finite difference of a base_color entry (within
-    25%: detached sampling sees no lobe flips).
+    25%: detached sampling sees no lobe flips);
+13. the CLI on the card: cli.main in this process with --scene test at
+    1024x512, 8 bounces, 3 spp, --progress-every 1, --timing and
+    --save-state (its JSON line parsed, K1 launched, the plain sweep never
+    called), then --resume with 1 spp more, whose accumulator must equal a
+    continuous 4-spp render exactly; the --timing table (fenced wall ms
+    and CUDA-event ms per stage) of that run and of phase 3's
+    81,922-triangle scene; then the CLI as a user runs it, a subprocess
+    `python -m ...cli --scene loong --material brown_glass` at 1024x512,
+    8 bounces, 2 spp, with ORTF_ASSETS naming a temporary directory that
+    holds the floor quad and, as objects/loong_100000.obj, a stand-in for
+    the loong asset (which is not in the repository): the subdiv-6
+    icosphere, 81,920 triangles, written as OBJ text;
+14. multi-device on the card (parallel/sharding.py, spawned ranks): NCCL
+    with one rank, render_pass_sharded at full width against phase 5's
+    first pass (image criterion) and material_grad_sharded against phase
+    12's material_grad (loss to rtol 1e-5, leaves to 2e-4 of their
+    largest entry); gloo with two ranks sharing the card (NCCL refuses
+    that), the 1-D mesh (2 tiles) and the 2-D mesh (1 tile x 2 spp)
+    against phase 5's first and second passes, param_grad_sharded for the
+    material at full width and for the camera and the geometry at 128x64,
+    2 bounces against one process's gradients (loss rtol 1e-4, leaves
+    rtol 5e-3 with an atol of 1e-4 of the leaf's largest entry). Each
+    rank's K1 launches (> 0), plain calls (0) and seconds are printed; two
+    ranks on one card give no scaling figure.
 
 Each kernel's bound is the least time the card could take for the work
 this run's inputs need: the larger of its FP32 operations over the card's
@@ -104,6 +128,8 @@ SPAN_WALK = 64              # spans per tile of the span-latency cases
 PEAK_FP32_FLOPS = 67e12     # H100 SXM, FP32 outside the tensor cores
 PEAK_HBM_BYTES = 3.35e12    # H100 SXM, HBM3
 FLOPS_PER_PAIR = 80         # 40 FMAs per ray x triangle (csrc/mt_span.cuh)
+CLI_RAYS_PER_TILE = 131072  # the CLI's default --rays-per-tile
+RANKS_TIMEOUT_S = 600       # a spawned group that takes longer fails
 PORT = "opengl_ray_tracing_framework_tpu_torch"
 EXPECTED_KERNELS = {"sweep", "cluster_intersect", "probe_copy",
                     "probe_gather", "probe_smem", "probe_stream"}
@@ -173,14 +199,17 @@ def span_bound(visits, clusters_read, t_blk, n_rays, index_bytes):
     return max(ops_ms, bytes_ms), by, ops_ms, bytes_ms
 
 
-def timed_passes(ortf, scene, camera, config, n_passes):
+def timed_passes(ortf, scene, camera, config, n_passes, keep=None):
     """render_progressive for n_passes, each fenced by a host copy.
-    Returns (display image, per-pass seconds)."""
+    Returns (display image, per-pass seconds); `keep`, a list, receives
+    the accumulator after each pass."""
     stamps = [time.perf_counter()]
 
     def fence(state, i):
         float(state.accum[0, 0, 0])   # host copy: the pass has finished
         stamps.append(time.perf_counter())
+        if keep is not None:
+            keep.append(state.accum)
 
     image, _ = ortf.render_progressive(
         scene, camera, config, n_iterations=n_passes, callback=fence,
@@ -419,6 +448,21 @@ def probe_phases(scene, camera, config):
     return entries, counts
 
 
+def grad_leaves(grads):
+    """{leaf name: tensor or None} of a MaterialTable, a Camera or the
+    vertex gradients (a dict of them is returned as it is)."""
+    from opengl_ray_tracing_framework_tpu_torch import Camera
+    from opengl_ray_tracing_framework_tpu_torch.models.material import (
+        Material, MaterialTable)
+    if isinstance(grads, dict):
+        return grads
+    if isinstance(grads, MaterialTable):
+        return dict(zip(Material._fields, grads.mat))
+    if isinstance(grads, Camera):
+        return dict(zip(Camera._fields, grads))
+    return {"vertices": grads}
+
+
 def grad_phases(ortf, scene, camera, config, k1_per_pass):
     """Phase 12: the gradient path on the card."""
     import numpy as np
@@ -433,17 +477,10 @@ def grad_phases(ortf, scene, camera, config, k1_per_pass):
     dev = scene.device
     presets = preset_materials()
 
-    def leaves_of(grads):
-        if isinstance(grads, MaterialTable):
-            return dict(zip(Material._fields, grads.mat))
-        if isinstance(grads, ortf.Camera):
-            return dict(zip(ortf.Camera._fields, grads))
-        return {"vertices": grads}
-
     def check_grads(label, loss, grads):
         """Finite loss and gradients, one of them nonzero, integer leaves
         None. Returns the largest |g|."""
-        leaves = leaves_of(grads)
+        leaves = grad_leaves(grads)
         if not np.isfinite(float(loss)):
             fail(f"{label}: the loss is not finite")
         top = 0.0
@@ -498,7 +535,7 @@ def grad_phases(ortf, scene, camera, config, k1_per_pass):
                  "must launch none")
         if plain_calls or ci.cluster_intersect.launches:
             fail("material_grad left the sweep kernel's path")
-    grad_launches = launches
+    material_ref = dict(target=target, loss=loss, grads=grads)
 
     # camera and geometry gradients at 128x64
     small = config.replace(width=128, height=64)
@@ -510,7 +547,7 @@ def grad_phases(ortf, scene, camera, config, k1_per_pass):
         loss, grads = autodiff.param_grad(scene, cam_small, target_small,
                                           small, param=name, spp=1)
         top = check_grads(f"{name}_grad", loss, grads)
-        shape = {k: tuple(v.shape) for k, v in leaves_of(grads).items()}
+        shape = {k: tuple(v.shape) for k, v in grad_leaves(grads).items()}
         print(f"{name}_grad: 128x64, {BOUNCES} bounces, 1 spp | loss "
               f"{float(loss):.4f}, max |g| {top:.4g}, shapes {shape} | "
               f"{time.perf_counter() - t0:.2f} s")
@@ -527,8 +564,8 @@ def grad_phases(ortf, scene, camera, config, k1_per_pass):
         """(worst over the leaves of max |a - b| over the leaf's largest
         |b|, that leaf's name)."""
         worst, worst_leaf = 0.0, ""
-        for leaf, a in leaves_of(grads_a).items():
-            b = leaves_of(grads_b)[leaf]
+        for leaf, a in grad_leaves(grads_a).items():
+            b = grad_leaves(grads_b)[leaf]
             if a is None and b is None:
                 continue
             a, b = a.cpu().clone(), b.cpu().clone()
@@ -617,7 +654,268 @@ def grad_phases(ortf, scene, camera, config, k1_per_pass):
           f"difference {fd:.5f}, autograd {ad:.5f}")
     if not abs(fd - ad) < 0.25 * max(abs(fd), abs(ad)):
         fail("the base_color gradient disagrees with its finite difference")
-    return grad_launches
+    return dict(material_ref, target_small=target_small)
+
+
+def hold_grads(label, got, want, loss_rtol, scale_tol, rtol=0.0):
+    """Hold (loss, grads) against (loss, grads): the loss to loss_rtol,
+    every float leaf elementwise to rtol of the entry plus scale_tol of
+    the leaf's largest entry. Prints the worst leaf."""
+    (loss, grads), (ref_loss, ref) = got, want
+    rel_loss = abs(float(loss) - float(ref_loss)) / abs(float(ref_loss))
+    worst, worst_leaf = 0.0, "-"
+    ok = rel_loss <= loss_rtol
+    for name, g in grad_leaves(grads).items():
+        r = grad_leaves(ref)[name]
+        if g is None or r is None:
+            ok &= g is None and r is None
+            continue
+        g, r = g.detach().cpu().double(), r.detach().cpu().double()
+        top = r.abs().max().item()
+        err = (g - r).abs()
+        ok &= bool((err <= rtol * r.abs() + scale_tol * top).all())
+        gap = err.max().item() / top if top > 0 else err.max().item()
+        if gap > worst:
+            worst, worst_leaf = gap, name
+    print(f"{label}: loss {float(loss):.5f} vs {float(ref_loss):.5f} (rel "
+          f"{rel_loss:.2e}) | worst leaf {worst_leaf}: {worst:.2e} of its "
+          f"largest entry (held to rtol {rtol:g} + {scale_tol:g} of it)")
+    if not ok:
+        fail(f"{label}: the gradients disagree")
+
+
+def cli_phase(ortf, scene, camera, config):
+    """Phase 13: the CLI on the card, in this process and as a
+    subprocess."""
+    import contextlib
+    import io
+    import os
+    import subprocess
+    import tempfile
+    from pathlib import Path
+
+    import torch
+    from opengl_ray_tracing_framework_tpu_torch import cli
+    from opengl_ray_tracing_framework_tpu_torch.models import mesh
+    from opengl_ray_tracing_framework_tpu_torch.ops import sweep as sw
+    from opengl_ray_tracing_framework_tpu_torch.utils.image import read_png
+    from opengl_ray_tracing_framework_tpu_torch.utils.timing import (
+        format_breakdown, pass_breakdown)
+
+    def result_line(out, label):
+        try:
+            res = json.loads(out.strip().splitlines()[-1])
+        except (IndexError, ValueError):
+            fail(f"{label}: no JSON result line")
+        if set(res) != {"out", "spp", "seconds", "rays_per_sec"} or not (
+                res["seconds"] > 0 and res["rays_per_sec"] > 0):
+            fail(f"{label}: malformed result line {res}")
+        return res
+
+    def run_cli(label, *argv):
+        """cli.main in this process: (result line, stderr, K1 launches,
+        plain calls)."""
+        sw.sweep.launches = 0
+        sw.sweep_plain.calls = 0
+        out, err = io.StringIO(), io.StringIO()
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            cli.main(list(argv))
+        res = result_line(out.getvalue(), label)
+        launches, plain = sw.sweep.launches, sw.sweep_plain.calls
+        print(f"{label}: {json.dumps(res)} | K1 launches {launches}, plain "
+              f"calls {plain}")
+        if launches <= 0 or plain:
+            fail(f"{label}: K1 launched {launches} times, the plain sweep "
+                 f"called {plain} times")
+        return res, err.getvalue()
+
+    frame = ["--scene", "test", "--width", str(WIDTH), "--height",
+             str(HEIGHT), "--max-bounce", str(BOUNCES)]
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        res, err = run_cli(
+            "cli", *frame, "--spp", "3", "--progress-every", "1", "--timing",
+            "--save-state", str(tmp / "a.npz"), "--out", str(tmp / "a.png"))
+        for line in err.splitlines():
+            print(f"cli stderr: {line}")
+        res, _ = run_cli(
+            "cli --resume", *frame, "--spp", "1", "--resume",
+            str(tmp / "a.npz"), "--save-state", str(tmp / "b.npz"), "--out",
+            str(tmp / "b.png"))
+        resumed = ortf.load_render_state(str(tmp / "b.npz"))
+        _, test_scene = ortf.build_test_scene()
+        test_cam = ortf.Camera.make(position=(0.0, 0.5, -2.0), yaw=90.0,
+                                    pitch=-8.0, zoom=30.0,
+                                    aspect=WIDTH / HEIGHT)
+        state = ortf.render_passes(
+            test_scene, test_cam, ortf.init_render_state(config), config, 4,
+            rays_per_tile=CLI_RAYS_PER_TILE)
+        d = (resumed.accum - state.accum).abs().max().item()
+        print(f"cli resume: 3 spp + --resume 1 spp = {resumed.n_samples} "
+              f"spp against a continuous 4-spp render | max |d| {d:.3g}")
+        if res["spp"] != 4 or resumed.n_samples != 4 or d != 0.0:
+            fail("the resumed render differs from the continuous one")
+
+        # the --timing table of the 81,922-triangle scene
+        times = pass_breakdown(scene, camera, config,
+                               rays_per_tile=CLI_RAYS_PER_TILE)
+        for line in format_breakdown(times).splitlines():
+            print(f"timing, {scene.n_triangles} triangles, "
+                  f"{CLI_RAYS_PER_TILE} rays per batch: {line}")
+
+        # the CLI as a user runs it, on OBJ files at the loong's scale
+        objects = tmp / "assets" / "objects"
+        objects.mkdir(parents=True)
+        mesh.save_obj(str(objects / "floor.obj"), mesh.make_quad())
+        mesh.save_obj(str(objects / "loong_100000.obj"),
+                      mesh.make_icosphere(6))
+        out = tmp / "loong.png"
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", f"{PORT}.cli", "--scene", "loong",
+             "--material", "brown_glass", *frame[2:], "--spp", "2",
+             "--progress-every", "1", "--out", str(out)],
+            capture_output=True, text=True, timeout=600,
+            cwd=Path(__file__).resolve().parent,
+            env={**os.environ, "ORTF_ASSETS": str(tmp / "assets")})
+        wall = time.perf_counter() - t0
+        for line in proc.stderr.splitlines()[-20:]:
+            print(f"cli loong stand-in stderr: {line}")
+        if proc.returncode != 0:
+            fail(f"the CLI subprocess exited with {proc.returncode}")
+        res = result_line(proc.stdout, "cli loong stand-in")
+        image = torch.tensor(read_png(str(out)))
+        print(f"cli loong stand-in (the subdiv-6 icosphere, 81,920 "
+              f"triangles, as objects/loong_100000.obj; the loong asset is "
+              f"not in the repository): {json.dumps(res)} | process "
+              f"{wall:.1f} s | PNG {tuple(image.shape)}, mean "
+              f"{image.float().mean().item():.2f}")
+        if res["spp"] != 2 or tuple(image.shape) != (HEIGHT, WIDTH, 3) \
+                or not image.float().mean() > 0:
+            fail("the CLI subprocess wrote no image of the frame")
+
+
+def shard_rank(backend, target, target_small):
+    """One rank of phase 14 (a spawned process): phase 3's scene, the
+    sharded passes and gradients. Returns the gathered images, the
+    gradients (on the host), seconds, K1 launches and plain calls."""
+    import torch
+    import opengl_ray_tracing_framework_tpu_torch as ortf
+    from opengl_ray_tracing_framework_tpu_torch.models.hdr import (
+        make_gradient_hdr)
+    from opengl_ray_tracing_framework_tpu_torch.models.material import (
+        preset_materials)
+    from opengl_ray_tracing_framework_tpu_torch.ops import sweep as sw
+    from opengl_ray_tracing_framework_tpu_torch.parallel import (
+        autodiff, sharding)
+
+    def host(grads):
+        return {k: None if g is None else g.cpu()
+                for k, g in grad_leaves(grads).items()}
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    _, scene = ortf.build_test_scene(
+        6, material=preset_materials()["tear_glass"],
+        env=make_gradient_hdr(1024, 512))
+    camera = ortf.Camera.make(aspect=WIDTH / HEIGHT)
+    config = ortf.RenderConfig(width=WIDTH, height=HEIGHT,
+                               max_bounce=BOUNCES)
+    mesh = sharding.make_mesh()
+    scene = sharding.replicate_scene(scene, mesh)
+    out = {"rank": mesh.rank, "device": str(scene.device),
+           "build_s": time.perf_counter() - t0}
+    sw.sweep.launches = 0
+    sw.sweep_plain.calls = 0
+    meshes = [("1-D", mesh, config)]
+    if backend == "gloo":
+        meshes.append(("2-D", sharding.make_mesh_2d(1),
+                       config.replace(spp_per_pass=2)))
+    for name, m, cfg in meshes:
+        img, out[f"{name} s"] = timed(lambda: sharding.gather_image(
+            sharding.render_pass_sharded(
+                scene, camera, ortf.init_render_state(cfg), cfg, m,
+                rays_per_tile=RAYS_PER_TILE), m))
+        out[name] = img.cpu()
+    (loss, grads), out["material s"] = timed(
+        lambda: autodiff.material_grad_sharded(
+            scene, camera, target.cuda(), config, mesh,
+            rays_per_tile=RAYS_PER_TILE))
+    out["material"] = (float(loss), host(grads))
+    if backend == "gloo":
+        small = config.replace(width=128, height=64, max_bounce=2)
+        cam_small = ortf.Camera.make(aspect=2.0)
+        for group in ("camera", "geometry"):
+            (loss, grads), out[f"{group} s"] = timed(
+                lambda: autodiff.param_grad_sharded(
+                    scene, cam_small, target_small.cuda(), small, mesh,
+                    param=group, spp=2))
+            out[group] = (float(loss), host(grads))
+    out["launches"], out["plain"] = sw.sweep.launches, sw.sweep_plain.calls
+    return out
+
+
+def shard_phase(ortf, scene, config, passes, grad_ref):
+    """Phase 14: spawned ranks of parallel/sharding.py on the card, held
+    against this process's results."""
+    from opengl_ray_tracing_framework_tpu_torch.parallel import (
+        autodiff, sharding)
+
+    target = grad_ref["target"].cpu()
+    target_small = grad_ref["target_small"].cpu()
+    material = (grad_ref["loss"], grad_ref["grads"])
+    small = config.replace(width=128, height=64, max_bounce=2)
+    cam_small = ortf.Camera.make(aspect=2.0)
+    singles = {g: autodiff.param_grad(scene, cam_small, grad_ref[
+        "target_small"], small, param=g, spp=2)
+        for g in ("camera", "geometry")}
+
+    for backend, world in (("nccl", 1), ("gloo", 2)):
+        t0 = time.perf_counter()
+        ranks = sharding.spawn_ranks(shard_rank, world, backend, target,
+                                     target_small, backend=backend,
+                                     timeout_s=RANKS_TIMEOUT_S)
+        label = f"sharded {backend}, world {world}"
+        print(f"{label}: {world} spawned rank(s) done in "
+              f"{time.perf_counter() - t0:.1f} s"
+              + (" | both ranks share the one card: no scaling figure"
+                 if world > 1 else ""))
+        for r in ranks:
+            secs = ", ".join(f"{k} {v:.3f}" for k, v in r.items()
+                             if k.endswith(" s") or k == "build_s")
+            print(f"{label}, rank {r['rank']} on {r['device']}: K1 launches "
+                  f"{r['launches']}, plain calls {r['plain']} | seconds: "
+                  f"{secs}")
+            if r["launches"] <= 0 or r["plain"]:
+                fail(f"{label}, rank {r['rank']}: K1 launched "
+                     f"{r['launches']} times, plain calls {r['plain']}")
+        r = ranks[0]
+        for name, ref in (("1-D", passes[0]), ("2-D", passes[1])):
+            if name not in r:
+                continue
+            d = (r[name] - ref.cpu()).abs().max().item()
+            compare_images(f"{label} {name} pass", r[name], ref,
+                           f"{WIDTH}x{HEIGHT}, {BOUNCES} bounces, max |d| "
+                           f"{d:.3g} | ")
+        loss_rtol, scale_tol, rtol = (1e-5, 2e-4, 0.0) if world == 1 \
+            else (1e-4, 1e-4, 5e-3)
+        for rank in ranks:
+            hold_grads(f"{label} rank {rank['rank']} material_grad_sharded "
+                       f"{WIDTH}x{HEIGHT}", rank["material"],
+                       material, loss_rtol, scale_tol, rtol)
+            for group in ("camera", "geometry"):
+                if group in rank:
+                    hold_grads(
+                        f"{label} rank {rank['rank']} {group} "
+                        "param_grad_sharded 128x64, 2 bounces, 2 spp",
+                        rank[group], singles[group], loss_rtol, scale_tol,
+                        rtol)
 
 
 def main() -> int:
@@ -906,7 +1204,9 @@ def main() -> int:
     sw.sweep_plain.calls = 0
     ci.cluster_intersect.launches = 0
     ci.cluster_intersect_plain.calls = 0
-    img, pass_s = timed_passes(ortf, scene, camera, config, 3)
+    first_passes = []   # phase 14 holds the sharded passes against them
+    img, pass_s = timed_passes(ortf, scene, camera, config, 3,
+                               keep=first_passes)
     k1_launches, plain_calls = sw.sweep.launches, sw.sweep_plain.calls
     timed = pass_s[1:]
     mean_s = sum(timed) / len(timed)
@@ -1005,7 +1305,11 @@ def main() -> int:
 
     # 10-11. the probe kernels and the probes; 12. the gradient path
     probe_entries, probe_counts = probe_phases(scene, camera, config)
-    grad_phases(ortf, scene, camera, config, k1_launches // 3)
+    grad_ref = grad_phases(ortf, scene, camera, config, k1_launches // 3)
+
+    # 13. the CLI; 14. multi-device
+    cli_phase(ortf, scene, camera, config)
+    shard_phase(ortf, scene, config, first_passes[:2], grad_ref)
 
     if args.profile:
         profile_pass("sweep", ortf, scene, camera, config)

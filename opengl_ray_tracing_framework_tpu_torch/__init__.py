@@ -27,15 +27,23 @@ TPU cost probes under exp/ (kernels csrc/probe_copy.cu, probe_gather.cu,
 probe_smem.cu, probe_stream.cu), each runnable as
 `python -m opengl_ray_tracing_framework_tpu_torch.probes.<name>`.
 
+The entry points of the JAX package have their counterparts: cli.py (the
+headless renderer, `python -m opengl_ray_tracing_framework_tpu_torch.cli`,
+with checkpoint / resume through utils/checkpoint.py, whose npz files
+cross between the packages, and the --timing breakdown of
+utils/timing.py), parallel/sharding.py (row-sharded rendering on
+torch.distributed: init_distributed, make_mesh / make_mesh_2d,
+replicate_scene, render_pass_sharded, gather_image) with
+parallel/autodiff.py's param_grad_sharded / material_grad_sharded, and
+examples/live_edit.py (edit a material, invalidate, re-render).
+
 Constructors and entry points put their tensors on the card unless the
-caller names a device (device="cpu", as the tests do). Not ported yet:
-the CLI, checkpoints, multi-device with the sharded gradients (ROADMAP.md,
-Queue 1).
+caller names a device (device="cpu", as the tests do).
 """
 
 __version__ = "0.1.0"
 
-from .models.camera import Camera
+from .models.camera import Camera, pixel_uv
 from .models.material import (
     MEDIUM_ABSORB,
     MEDIUM_EMISSIVE,
@@ -62,6 +70,7 @@ from .render import (
     render_progressive,
     render_radiance,
 )
+from .utils.checkpoint import load_render_state, save_render_state
 from .utils.config import RenderConfig
 
 __all__ = [
@@ -81,11 +90,14 @@ __all__ = [
     "camera_from_numpy",
     "finalize",
     "init_render_state",
+    "load_render_state",
+    "pixel_uv",
     "render",
     "render_pass",
     "render_passes",
     "render_progressive",
     "render_radiance",
+    "save_render_state",
     "scene_from_numpy",
     "__version__",
 ]

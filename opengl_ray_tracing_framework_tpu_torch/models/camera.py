@@ -78,3 +78,22 @@ class Camera(NamedTuple):
         d = d / _norm(d)[..., None]
         origin = torch.broadcast_to(self.position, d.shape)
         return origin, d
+
+
+def pixel_uv(width: int, height: int, jitter_u=None, jitter_v=None,
+             device=None):
+    """Film coordinates of every pixel, row-major ((H*W,) each), on the
+    card unless a device is named.
+
+    Pixel (x, y) with y=0 the *bottom* row (GL texture convention) maps to
+    uv = ((x + .5)/W, (y + .5)/H), the rasterized fragment coordinate the
+    reference shades. Optional jitter tensors replace the .5 offsets.
+    """
+    device = resolve_device(device)
+    xs = torch.arange(width, dtype=torch.float32, device=device)
+    ys = torch.arange(height, dtype=torch.float32, device=device)
+    gx = xs.repeat(height)
+    gy = ys.repeat_interleave(width)
+    ju = 0.5 if jitter_u is None else jitter_u
+    jv = 0.5 if jitter_v is None else jitter_v
+    return (gx + ju) / width, (gy + jv) / height

@@ -123,6 +123,18 @@ class MaterialTable:
         safe = torch.clamp(idx, 0, self.count - 1).long()
         return Material(*(x[safe] for x in self.mat))
 
+    def replace_material(self, slot: int, material: Material
+                         ) -> "MaterialTable":
+        """A new table with `slot` set to `material`; this one is left as it
+        was. The analogue of the reference's RefreshTriangleMaterial + TBO
+        re-upload (Triangle.h:133-151): a live material edit."""
+        def put(tab, m):
+            new = tab.clone()
+            new[slot] = m.to(device=tab.device, dtype=tab.dtype)
+            return new
+
+        return MaterialTable(mat=Material(*map(put, self.mat, material)))
+
 
 # Built-in material presets (Scene.h:53-109), reproduced 1:1.
 

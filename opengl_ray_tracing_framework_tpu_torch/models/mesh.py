@@ -186,6 +186,20 @@ def mesh_to_triangles(mesh: MeshData, trans: np.ndarray,
 # ---------------------------------------------------------------------------
 
 
+def save_obj(path: str, mesh: MeshData) -> None:
+    """Write a mesh as OBJ text that load_obj reads back: v lines, vn
+    lines when it has normals, f lines with 1-based indices."""
+    faces = mesh.faces.astype(np.int64) + 1
+    with open(path, "w") as fh:
+        np.savetxt(fh, mesh.positions, fmt="v %.9g %.9g %.9g")
+        if mesh.normals is None:
+            np.savetxt(fh, faces, fmt="f %d %d %d")
+        else:
+            np.savetxt(fh, mesh.normals, fmt="vn %.9g %.9g %.9g")
+            np.savetxt(fh, np.repeat(faces, 2, axis=1),
+                       fmt="f %d//%d %d//%d %d//%d")
+
+
 def make_quad(size: float = 1.0) -> MeshData:
     """Unit quad in the xz plane facing +y."""
     s = size

@@ -65,6 +65,10 @@ class SceneData:
     def n_triangles(self) -> int:
         return self.p1.shape[0]
 
+    @property
+    def n_nodes(self) -> int:
+        return self.bvh_left.shape[0]
+
     def to(self, device) -> "SceneData":
         return SceneData(**{
             f.name: getattr(self, f.name).to(device)

@@ -1,3 +1,4 @@
-"""Differentiable rendering (PyTorch port of
-opengl_ray_tracing_framework_tpu.parallel). Single device; the sharded
-gradients of the JAX package come with the multi-device port."""
+"""Differentiable and multi-device rendering (PyTorch port of
+opengl_ray_tracing_framework_tpu.parallel): autodiff.py holds the
+gradients, single-process and sharded over ranks; sharding.py the
+row-sharded render on torch.distributed."""

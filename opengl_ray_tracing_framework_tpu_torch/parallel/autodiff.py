@@ -1,6 +1,6 @@
 """Differentiable rendering: d(pixel loss)/d(material table, camera pose,
 triangle vertices) by reverse-mode autograd (PyTorch port of
-opengl_ray_tracing_framework_tpu.parallel.autodiff, single device).
+opengl_ray_tracing_framework_tpu.parallel.autodiff).
 
 The capability the reference only has interactively (edit a material, see
 the re-render: ImGui loop, main.cpp:329-480 + RefreshTriangleMaterial)
@@ -14,6 +14,11 @@ has its remat policy, flat 1-D AD boundaries and cast-only compaction.
 Traversal is detached (ops/traverse.py): the casts run under no_grad, in
 the forward only, and the backward launches no kernel of csrc/.
 
+param_grad_sharded splits the rows over the ranks of a mesh
+(parallel/sharding.py): each rank runs param_grad on its rows, and one
+all_reduce of [its flat float gradients | its loss] sums them, the JAX
+package's one-reduction discipline.
+
 Documented biases, kept from the JAX package: no silhouette (visibility)
 term, and the sampling decisions (lobe choice, light texel, scatter
 distance draw) are detached.
@@ -24,6 +29,7 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+import torch.distributed as dist
 
 from ..models.camera import Camera
 from ..models.material import Material, MaterialTable
@@ -115,16 +121,9 @@ _PARAM_GROUPS = {
 }
 
 
-def param_grad(scene, camera: Camera, target, config: RenderConfig,
-               param: str = "material", spp: int = 1,
-               rays_per_tile: int = 65536):
-    """(loss, grads) of sum((render - target)^2) w.r.t. a named parameter
-    group: "material" (grads: a MaterialTable), "camera" (a Camera) or
-    "geometry" (leaf-ordered triangle vertices, (3, 3, N)). target is the
-    (H, W, 3) image, on the scene's device. Integer parameters
-    (medium_type) have no gradient: their entry is None, where the JAX
-    package returns a float0 zero. A float parameter no pixel depends on
-    gets zeros."""
+def _grads(scene, camera, target, config, param, spp, rays_per_tile, row0,
+           n_rows):
+    """(loss, gradient list in the group's order, wrap) of param_grad."""
     try:
         get, put, wrap = _PARAM_GROUPS[param]
     except KeyError:
@@ -136,16 +135,74 @@ def param_grad(scene, camera: Camera, target, config: RenderConfig,
     loss = torch.zeros((), dtype=torch.float32, device=scene.device)
     # forward and backward batch by batch: backward() frees the batch's
     # graph and adds into the leaves' .grad
-    for pixel_id, rad in _row_batches(scene, camera, config, 0,
-                                      config.height, spp, rays_per_tile):
-        batch_loss = _batch_loss(pixel_id, rad, target, config, 0)
+    for pixel_id, rad in _row_batches(scene, camera, config, row0, n_rows,
+                                      spp, rays_per_tile):
+        batch_loss = _batch_loss(pixel_id, rad, target, config, row0)
         if batch_loss.requires_grad:
             batch_loss.backward(inputs=wrt)
         loss += batch_loss.detach()
     grads = [None if not x.requires_grad
              else torch.zeros_like(x) if x.grad is None else x.grad
              for x in leaves]
+    return loss, grads, wrap
+
+
+def param_grad(scene, camera: Camera, target, config: RenderConfig,
+               param: str = "material", spp: int = 1,
+               rays_per_tile: int = 65536, row0: int = 0,
+               n_rows: int | None = None):
+    """(loss, grads) of sum((render - target)^2) over rows [row0, row0 +
+    n_rows) (default: the whole image) w.r.t. a named parameter group:
+    "material" (grads: a MaterialTable), "camera" (a Camera) or "geometry"
+    (leaf-ordered triangle vertices, (3, 3, N)). target is the (n_rows, W,
+    3) image of those rows, on the scene's device. Integer parameters
+    (medium_type) have no gradient: their entry is None, where the JAX
+    package returns a float0 zero. A float parameter no pixel depends on
+    gets zeros."""
+    n_rows = config.height - row0 if n_rows is None else n_rows
+    loss, grads, wrap = _grads(scene, camera, target, config, param, spp,
+                               rays_per_tile, row0, n_rows)
     return loss, wrap(grads)
+
+
+def param_grad_sharded(scene, camera: Camera, target, config: RenderConfig,
+                       mesh, param: str = "material", spp: int = 1,
+                       rays_per_tile: int = 65536):
+    """(loss, grads) of param_grad over the whole (H, W, 3) target with the
+    rows split over every rank of `mesh` (parallel/sharding.py): rank r
+    takes rows [r*H/n, (r+1)*H/n). Each rank's float gradients and loss go
+    into one flat vector and ONE all_reduce sums it (the JAX package's
+    single reduction; no per-leaf collectives to order), then it is cut
+    back into the group's shapes. Every rank returns the same sums.
+    Integer leaves give None."""
+    if config.height % mesh.size:
+        raise ValueError(f"height {config.height} must divide the mesh size "
+                         f"{mesh.size}")
+    rows = config.height // mesh.size
+    row0 = mesh.rank * rows
+    loss, grads, wrap = _grads(scene, camera, target[row0:row0 + rows],
+                               config, param, spp, rays_per_tile, row0, rows)
+    flat = torch.cat([g.reshape(-1) for g in grads if g is not None]
+                     + [loss.reshape(1)])
+    if dist.is_initialized():
+        dist.all_reduce(flat)
+    out, off = [], 0
+    for g in grads:
+        if g is not None:
+            out.append(flat[off:off + g.numel()].reshape(g.shape))
+            off += g.numel()
+        else:
+            out.append(None)
+    return flat[-1], wrap(out)
+
+
+def material_grad_sharded(scene, camera: Camera, target,
+                          config: RenderConfig, mesh, spp: int = 1,
+                          rays_per_tile: int = 65536):
+    """(loss, grads) w.r.t. the material table, rows split over the mesh
+    and gradients all-reduced."""
+    return param_grad_sharded(scene, camera, target, config, mesh,
+                              "material", spp, rays_per_tile)
 
 
 def material_grad(scene, camera: Camera, target, config: RenderConfig,

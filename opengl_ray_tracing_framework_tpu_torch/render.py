@@ -86,18 +86,22 @@ def trace_pixels(scene: SceneData, camera: Camera, pixel_id: torch.Tensor,
     return trace_radiance(scene, origin, direction, pixel_id, frame, config)
 
 
-def _trace_image(scene: SceneData, camera: Camera, frame: int,
-                 config: RenderConfig, rays_per_tile: int) -> torch.Tensor:
-    """One sample per pixel -> (H, W, 3) radiance, traced in batches of
-    rays_per_tile pixels in pixel_order."""
+def _trace_rows(scene: SceneData, camera: Camera, frame: int,
+                config: RenderConfig, row0: int, n_rows: int,
+                rays_per_tile: int) -> torch.Tensor:
+    """One sample per pixel of rows [row0, row0 + n_rows) -> (n_rows, W, 3)
+    radiance, traced in batches of rays_per_tile pixels in pixel_order.
+    The RNG streams are keyed by global pixel ids, so a row's radiance is
+    the same whichever block it is traced in."""
     dev = scene.device
     camera = camera.to(dev)
-    pixel_id = pixel_order(config, 0, config.height, dev)
-    radiance = torch.empty((config.n_pixels, 3), dtype=torch.float32,
+    pixel_id = pixel_order(config, row0, n_rows, dev)
+    radiance = torch.empty((n_rows * config.width, 3), dtype=torch.float32,
                            device=dev)
     for batch in pixel_id.split(rays_per_tile):
-        radiance[batch] = trace_pixels(scene, camera, batch, frame, config)
-    return radiance.reshape(config.height, config.width, 3)
+        radiance[batch - config.width * row0] = trace_pixels(
+            scene, camera, batch, frame, config)
+    return radiance.reshape(n_rows, config.width, 3)
 
 
 @torch.no_grad()
@@ -107,8 +111,8 @@ def render_pass(scene: SceneData, camera: Camera, state: RenderState,
     """Advance the progressive render by spp_per_pass samples/pixel."""
     accum, n = state.accum, state.n_samples
     for s in range(config.spp_per_pass):
-        sample = _trace_image(scene, camera, n + s + 1, config,
-                              rays_per_tile)
+        sample = _trace_rows(scene, camera, n + s + 1, config, 0,
+                             config.height, rays_per_tile)
         accum = accum + (sample - accum) / float(n + s + 1)
     return RenderState(accum=accum, n_samples=n + config.spp_per_pass)
 

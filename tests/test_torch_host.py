@@ -110,7 +110,9 @@ def test_port_never_imports_jax():
         "for n in names: importlib.import_module(n)\n"
         "import chip_smoke\n"
         "for want in ('parallel.autodiff', 'probes.launch_overhead', "
-        "'probes.gather', 'probes.card_perf', 'probes.kernel_build'):\n"
+        "'probes.gather', 'probes.card_perf', 'probes.kernel_build', "
+        "'cli', 'parallel.sharding', 'utils.checkpoint', 'utils.timing', "
+        "'examples.live_edit'):\n"
         "    assert p.__name__ + '.' + want in names, want\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'opengl_ray_tracing_framework_tpu'))\n"
@@ -129,7 +131,8 @@ def test_entry_points_default_to_the_card():
     import inspect
 
     from opengl_ray_tracing_framework_tpu_torch import (
-        Camera, init_render_state)
+        Camera, cli, init_render_state, load_render_state, pixel_uv)
+    from opengl_ray_tracing_framework_tpu_torch.parallel import sharding
     from opengl_ray_tracing_framework_tpu_torch.utils import config
 
     assert config.default_device() == torch.device("cuda")
@@ -139,8 +142,10 @@ def test_entry_points_default_to_the_card():
     for fn in (tscene.scene_from_numpy, tscene.camera_from_numpy,
                tscene.Scene.build, tscene.build_test_scene,
                tscene.build_reference_scene, Camera.make,
-               init_render_state):
+               init_render_state, load_render_state, pixel_uv,
+               sharding.init_distributed, sharding.spawn_ranks):
         assert inspect.signature(fn).parameters["device"].default is None, fn
+    assert cli.build_parser().parse_args([]).device == "cuda"
 
 
 @pytest.mark.parametrize("kw", [
@@ -163,3 +168,40 @@ def test_bad_cast_backend_is_refused():
     for bad in (dict(cast_backend="pallas"), dict(sched_topk=0)):
         with pytest.raises(ValueError):
             RenderConfig(**bad).validate()
+
+
+def test_pixel_uv_matches_jax():
+    from opengl_ray_tracing_framework_tpu.models.camera import (
+        pixel_uv as jpixel_uv)
+    from opengl_ray_tracing_framework_tpu_torch import pixel_uv
+    for jitter in (None, np.random.default_rng(4).random(35, np.float32)):
+        args = () if jitter is None else (jitter, 1.0 - jitter)
+        ju, jv = jpixel_uv(7, 5, *args)
+        tu, tv = pixel_uv(7, 5, *(torch.tensor(a) for a in args),
+                          device="cpu")
+        assert tu.dtype == torch.float32 and tu.shape == (35,)
+        np.testing.assert_array_equal(tu.numpy(), np.asarray(ju))
+        np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
+
+
+def test_replace_material_and_n_nodes_match_jax():
+    """MaterialTable.replace_material returns a new table equal to the JAX
+    one's and leaves the old one as it was; SceneData.n_nodes counts the
+    BVH nodes as the JAX SceneData does."""
+    from opengl_ray_tracing_framework_tpu.models.material import (
+        preset_materials as jpresets)
+    from opengl_ray_tracing_framework_tpu_torch.models.material import (
+        preset_materials as tpresets)
+    _, jdata = jscene.build_test_scene(1)
+    _, tdata = tscene.build_test_scene(1, device="cpu")
+    assert tdata.n_nodes == jdata.n_nodes == tdata.bvh_min.shape[0]
+    before = [x.clone() for x in tdata.materials.mat]
+    jnew = jdata.materials.replace_material(1, jpresets()["brown_glass"])
+    tnew = tdata.materials.replace_material(1, tpresets()["brown_glass"])
+    for f, a, b, old in zip(Material._fields, tnew.mat, before,
+                            tdata.materials.mat):
+        assert a.dtype == b.dtype, f
+        np.testing.assert_array_equal(a.numpy(),
+                                      np.asarray(getattr(jnew.mat, f)), f)
+        assert torch.equal(old, b), f
+    assert int(tnew.mat.medium_type[1]) == 1   # MEDIUM_ABSORB
