@@ -20,11 +20,20 @@ when torch sees no CUDA device, and when anything below fails:
     of 4, and the span-latency cases (1, 132 and 1,024 tiles that each
     walk exactly 64 spans: microseconds per span of a tile's walk), each
     held against sweep_plain on the same inputs and timed with CUDA events;
+    then wide cluster blocks: the scene rebuilt with cluster_size 512 and
+    1,024 (the primary cast, the pair and the deep pair), its 512 blocks
+    cut to T = 302, and a 20,482-triangle scene in blocks of 4,096 cast at
+    a 128x64 grid of the frame, each equal to sweep_plain (every hit and
+    triangle, t to 1e-6 relative), with its bound and microseconds per
+    span of the longest walk;
  4. K2 against its plain version at the schedule path's shapes: the same
     primary batch and the first bounce's bounce cast, with spans / nspan
     from the tracer's real votes; every round's launch is compared, the
     first round and the round with the most elected spans are timed, and
-    the mean launch over all rounds of the bounce cast;
+    the mean launch over all rounds of the bounce cast beside the plain
+    version's and the mean bound; then the same casts on the wide blocks
+    of phase 3 (and the 4,096 scene's grid), every round equal to the
+    plain version as in phase 3, round 0 timed;
  5. the default render: render_progressive at 1024x512, 8 bounces, BSDF,
     HDR environment + MIS, tear-glass sphere, 1024x512 procedural HDR,
     sweep tracer; one warm-up pass and two timed passes, each fenced by a
@@ -35,15 +44,21 @@ when torch sees no CUDA device, and when anything below fails:
  7. the schedule render: the same frame with cast_backend="schedule", one
     warm-up and one timed pass; K2 must be launched, its plain version and
     K1 never; then the schedule image against the sweep image on the card
-    at 128x64, 2 spp, by the same criterion;
+    at 128x64, 2 spp, by the same criterion; then one pass of the full
+    frame with each cluster tracer on the scene in blocks of 1,024, held
+    against phase 5's first pass by the same criterion (K1 or K2 launched,
+    no plain call);
  8. BRDF mode (enable_bsdf=False, sweep tracer): one full-width pass, and
     card against CPU at 128x64;
  9. cast_backend="bvh" and use_bvh=False at 128x64, 1 spp against the
     sweep image (kernel-free tracers, host loops).
 
 10. the probe kernels against their plain versions at the probes' own
-    shapes, by exact equality (they copy, add and gather; the streamed sums
-    are of integer-valued floats, exact in any order; with random floats
+    shapes (the copy probe at tile 128 with and without span rows, the
+    gather at a 4,096-entry table from global and from shared memory,
+    each beside its one-call library counterpart), by exact equality
+    (they copy, add and gather; the streamed sums are of integer-valued
+    floats, exact in any order; with random floats
     they are held to rtol 1e-5), each with its kernel, plain and library
     time and its bytes bound. Kernel and library times are device times
     with the inputs coming from HBM (launches of one CUDA graph rotate
@@ -63,7 +78,10 @@ when torch sees no CUDA device, and when anything below fails:
     material, one warm-up and one timed step fenced by a host copy of the
     gradients: loss and every gradient finite, one nonzero, the forward
     pass's count of K1 launches and not one more (the backward launches no
-    kernel), no plain call; camera_grad and geometry_grad at 128x64; card
+    kernel), no plain call; camera_grad and geometry_grad at 128x64;
+    material_grad at 128x64 on the scene in blocks of 1,024 against the
+    same step on blocks of 256 (loss to rtol 1e-5, leaves to 2e-4 of their
+    largest entry); card
     against CPU gradients at 128x64, 2 spp (loss to rtol 1e-4, every
     gradient leaf to 5e-3 of its largest entry, the camera's scalar
     leaves to 2e-2: same hits, float order differs; camera and geometry
@@ -124,10 +142,12 @@ RAYS_PER_TILE = 65536
 REPEATS = 5
 DEEP_BOUNCE = 5             # phase 3 also takes the merged cast of bounce 4
 RAGGED_T = 250              # a cluster block width that is no multiple of 4
-SPAN_WALK = 64              # spans per tile of the span-latency cases
-PEAK_FP32_FLOPS = 67e12     # H100 SXM, FP32 outside the tensor cores
+WIDE_T = (512, 1024)        # the scene rebuilt in cluster blocks this wide
+RAGGED_WIDE_T = 302         # a wide block width that is no multiple of 4
+WIDEST_T, WIDEST_SUBDIV = 4096, 5   # the widest block, on a 20,482-triangle
+                                    # scene, cast at WIDEST_GRID
+WIDEST_GRID = (128, 64)
 PEAK_HBM_BYTES = 3.35e12    # H100 SXM, HBM3
-FLOPS_PER_PAIR = 80         # 40 FMAs per ray x triangle (csrc/mt_span.cuh)
 CLI_RAYS_PER_TILE = 131072  # the CLI's default --rays-per-tile
 RANKS_TIMEOUT_S = 600       # a spawned group that takes longer fails
 PORT = "opengl_ray_tracing_framework_tpu_torch"
@@ -146,10 +166,15 @@ def cuda_ms(fn, repeats=REPEATS) -> float:
     return probes.cuda_ms(fn, repeats)
 
 
-def compare_records(got, want, slot2tri, label, min_hit_agree=0.9999):
+def compare_records(got, want, slot2tri, label, min_hit_agree=0.9999,
+                    strict=False):
     """The sweep criterion on two (R, 8) records: hit/miss agreement, t to
     1e-4, the same triangle on >= 99.5% of common hits, inside equal where
-    the triangle agrees. Returns max |t_got - t_want| over common hits."""
+    the triangle agrees; strict: every hit and triangle equal, t to 1e-6
+    relative (the plain version's cuBLAS product may sum in another order
+    than the kernel's fmaf chain and round t 1 ulp apart). Returns
+    (max |t_got - t_want| over common hits, hit/miss agreement, triangle
+    agreement)."""
     import torch
     gs, ws = got[:, 1].long(), want[:, 1].long()
     gh, wh = gs >= 0, ws >= 0
@@ -167,6 +192,12 @@ def compare_records(got, want, slot2tri, label, min_hit_agree=0.9999):
     if not torch.equal(got[both, 2][same], want[both, 2][same]):
         fail(f"{label}: inside flag differs")
     err = (gt - wt).abs().max().item() if gt.numel() else 0.0
+    # strict: counts, not the means above (a mean over the card can round
+    # to 1 - 2^-24 where every element agrees)
+    if strict and not (bool((gh == wh).all()) and bool(same.all())
+                       and torch.allclose(gt, wt, rtol=1e-6, atol=0.0)):
+        fail(f"{label}: hit/miss agreement {agree:.6f}, triangle agreement "
+             f"{tri_agree:.6f}, max |dt| {err:.3g}: not equal")
     return err, agree, tri_agree
 
 
@@ -182,21 +213,6 @@ def compare_images(label, img, ref, note=""):
           f"{rel_mean:.2e}) | values off at 1e-3: {mismatch:.2e}")
     if not np.isfinite(g).all() or rel_mean >= 1e-4 or mismatch >= 1e-3:
         fail(f"{label}: the images disagree")
-
-
-def span_bound(visits, clusters_read, t_blk, n_rays, index_bytes):
-    """(bound_ms, bound_by, ops_ms, bytes_ms) of a cluster kernel call that
-    walks `visits` (ray tile of 128, cluster) spans over `clusters_read`
-    distinct clusters: 128 * T * 80 FP32 operations per span; bytes are
-    the 41*T floats of each distinct cluster block once, the ray features
-    once, the records read and written once, and the span lists."""
-    ops = visits * 128 * t_blk * FLOPS_PER_PAIR
-    nbytes = (clusters_read * 41 * t_blk * 4 + n_rays * (16 + 2 * 8) * 4
-              + index_bytes)
-    ops_ms = ops / PEAK_FP32_FLOPS * 1e3
-    bytes_ms = nbytes / PEAK_HBM_BYTES * 1e3
-    by = "operations" if ops_ms >= bytes_ms else "bytes"
-    return max(ops_ms, bytes_ms), by, ops_ms, bytes_ms
 
 
 def timed_passes(ortf, scene, camera, config, n_passes, keep=None):
@@ -363,7 +379,9 @@ def probe_phases(scene, camera, config):
     # 10. each probe kernel against its plain version
     n_rows = launch_overhead.N_ROWS
     rayfeat, best = launch_overhead.make_inputs(dev)
-    for tile, with_rows in ((8192, False), (128, False), (128, True)):
+    # the last case is the one the kernels line reports: tile 128 without
+    # span rows, the function best + rayfeat[:, :8] computes
+    for tile, with_rows in ((8192, False), (128, True), (128, False)):
         extra = launch_overhead.make_span_rows(dev, n_rows, tile) \
             if with_rows else ()
         compare(
@@ -463,8 +481,9 @@ def grad_leaves(grads):
     return {"vertices": grads}
 
 
-def grad_phases(ortf, scene, camera, config, k1_per_pass):
-    """Phase 12: the gradient path on the card."""
+def grad_phases(ortf, scene, camera, config, k1_per_pass, wide_scene):
+    """Phase 12: the gradient path on the card; wide_scene is the scene in
+    blocks of 1,024 triangles."""
     import numpy as np
     import torch
     from opengl_ray_tracing_framework_tpu_torch.models.material import (
@@ -553,6 +572,23 @@ def grad_phases(ortf, scene, camera, config, k1_per_pass):
               f"{time.perf_counter() - t0:.2f} s")
     if tuple(grads.shape) != (3, 3, scene.n_triangles):
         fail(f"geometry_grad returned shape {tuple(grads.shape)}")
+
+    # material_grad on the scene in blocks of 1,024 triangles: K1 launched,
+    # no plain call, held against the same step on blocks of 256 (the same
+    # hits, so the same gradients up to float order)
+    sw.sweep.launches = sw.sweep_plain.calls = 0
+    wide = autodiff.material_grad(wide_scene, cam_small, target_small, small,
+                                  spp=2)
+    launches, plain_calls = sw.sweep.launches, sw.sweep_plain.calls
+    check_grads("material_grad, blocks of 1024", *wide)
+    hold_grads(
+        f"material_grad 128x64, {BOUNCES} bounces, 2 spp, blocks of 1024 "
+        f"(K1 launches {launches}, plain calls {plain_calls}) vs blocks of "
+        "256", wide, autodiff.material_grad(scene, cam_small, target_small,
+                                            small, spp=2), 1e-5, 2e-4)
+    if launches <= 0 or plain_calls:
+        fail(f"material_grad on blocks of 1024: K1 launches {launches}, "
+             f"plain calls {plain_calls}")
 
     # card against CPU, 128x64, 2 spp. The floor's material has ior 1 and
     # metallic 0, so its specular weight is 0 up to rounding and the
@@ -821,7 +857,7 @@ def shard_rank(backend, target, target_small):
         return out, time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    _, scene = ortf.build_test_scene(
+    host_scene, scene = ortf.build_test_scene(
         6, material=preset_materials()["tear_glass"],
         env=make_gradient_hdr(1024, 512))
     camera = ortf.Camera.make(aspect=WIDTH / HEIGHT)
@@ -930,6 +966,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible to torch", file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
 
     import opengl_ray_tracing_framework_tpu_torch as ortf
     from opengl_ray_tracing_framework_tpu_torch.models.hdr import (
@@ -943,7 +980,8 @@ def main() -> int:
     from opengl_ray_tracing_framework_tpu_torch.ops import sweep as sw
     from opengl_ray_tracing_framework_tpu_torch import probes
     from opengl_ray_tracing_framework_tpu_torch.probes import (  # noqa: F401
-        kernel_build)   # its import registers every kernel's source
+        kernel_build,   # its import registers every kernel's source
+        staging)
     from opengl_ray_tracing_framework_tpu_torch.utils import nvcc
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -971,7 +1009,7 @@ def main() -> int:
 
     # 3. K1 vs plain at main-path shapes
     t0 = time.perf_counter()
-    _, scene = ortf.build_test_scene(
+    host_scene, scene = ortf.build_test_scene(
         6, material=preset_materials()["tear_glass"],
         env=make_gradient_hdr(1024, 512))
     camera = ortf.Camera.make(aspect=WIDTH / HEIGHT)
@@ -1025,7 +1063,7 @@ def main() -> int:
     slot2tri = scene.cl_slot2tri.long()
     k1 = {}
 
-    def k1_case(name, kargs, live, slots=slot2tri):
+    def k1_case(name, kargs, live, slots=slot2tri, strict=False):
         """Hold K1 against sweep_plain on one set of kernel arguments,
         time both and print the case's line."""
         nspan, spans, best0 = kargs[0], kargs[1], kargs[4]
@@ -1034,21 +1072,23 @@ def main() -> int:
         want = sw.sweep_plain(*kargs)
         torch.cuda.synchronize()
         err, agree, tri_agree = compare_records(got, want, slots,
-                                                f"K1 {name}")
+                                                f"K1 {name}", strict=strict)
         # the work these inputs need: the spans the walk visits before
         # its stop test ends it (counted by the plain version's walk)
         visited = sw.sweep_plain.visited
         walked = torch.arange(spans.shape[1], device=dev)[None, :] \
             < visited[:, None]
-        bound = span_bound(
+        bound = probes.span_bound(
             int(visited.sum()), int(torch.unique(spans[walked]).numel()),
             t_case, best0.shape[0],
             index_bytes=nspan.numel() * 4 + 2 * int(visited.sum()) * 4)
         ms = cuda_ms(lambda: sw.sweep(*kargs[:4], best0.clone(), kargs[5]))
         plain_ms = cuda_ms(lambda: sw.sweep_plain(*kargs), repeats=2)
         clone_ms = cuda_ms(lambda: best0.clone())
+        walk = int(visited.max())
         k1[name] = dict(err=err, ms=ms, plain_ms=plain_ms, bound=bound,
-                        clone_ms=clone_ms)
+                        clone_ms=clone_ms, visits=int(visited.sum()),
+                        us_per_span=(ms - clone_ms) * 1e3 / max(walk, 1))
         ctas = nvcc.load("sweep").sweep_cluster_size(spans.shape[0], t_case)
         print(f"K1 sweep {name}: {best0.shape[0]} rays ({live} live), "
               f"{spans.shape[0]} tiles x {ctas} CTA(s), T {t_case}, "
@@ -1059,7 +1099,18 @@ def main() -> int:
               f"max |dt| {err:.3g} | kernel {ms:.3f} ms (incl. "
               f"{clone_ms:.3f} ms record copy), plain {plain_ms:.3f} ms, "
               f"bound {bound[0]:.4f} ms by {bound[1]} (operations "
-              f"{bound[2]:.4f} ms, bytes {bound[3]:.4f} ms)")
+              f"{bound[2]:.4f} ms, bytes {bound[3]:.4f} ms) | "
+              f"{k1[name]['us_per_span']:.2f} us per span of the longest "
+              f"walk")
+
+    def cut_blocks(trifeat, slots, t_new):
+        """Cluster blocks cut to their first t_new triangle columns (the
+        four T-column groups of every row cut alike), and their slots."""
+        c, _, cols = trifeat.shape
+        t_old = cols // 4
+        cut = trifeat.reshape(c, 16, 4, t_old)[..., :t_new]
+        return (cut.reshape(c, 16, 4 * t_new).contiguous(),
+                slots.reshape(c, t_old)[:, :t_new].reshape(-1))
 
     # the primary cast, the first bounce's merged pair, and the merged pair
     # of a deep bounce: few rays whose tiles overlap many clusters
@@ -1078,43 +1129,73 @@ def main() -> int:
     # triangles (not a multiple of 4: the kernel's unaligned staging path)
     kargs, _ = sw.sweep_inputs(scene, origin, direction, ones,
                                torch.zeros_like(ones))
-    cut = scene.cl_trifeat.reshape(n_clusters, 16, 4, t_blk)[..., :RAGGED_T]
-    cut = cut.reshape(n_clusters, 16, 4 * RAGGED_T).contiguous()
-    k1_case("primary, ragged T", (*kargs[:5], cut), RAYS_PER_TILE,
-            slot2tri.reshape(n_clusters, t_blk)[:, :RAGGED_T].reshape(-1))
+    cut, cut_slots = cut_blocks(scene.cl_trifeat, slot2tri, RAGGED_T)
+    k1_case("primary, ragged T", (*kargs[:5], cut), RAYS_PER_TILE, cut_slots)
+
+    # wide cluster blocks, as the reference's Scene.build(cluster_size=...)
+    # makes them: the scene rebuilt in blocks of 512 and 1,024 (tensor-map
+    # copies of each CTA's chunks of columns), the 512 blocks cut to a T
+    # that is no multiple of 4 (hand-copied chunks), and a small scene in
+    # blocks of 4,096 cast at a coarse grid of the frame; every case must
+    # equal its plain version (compare_records, strict)
+    wide_scenes = {}
+    for t_wide in WIDE_T:
+        t0 = time.perf_counter()
+        sc = wide_scenes[t_wide] = host_scene.build(cluster_size=t_wide)
+        print(f"scene: rebuilt in {sc.cl_trifeat.shape[0]} clusters of "
+              f"{t_wide} in {time.perf_counter() - t0:.2f} s")
+        for name, rays in (("primary", (origin, direction, ones,
+                                        torch.zeros_like(ones))),
+                           ("pair", merged(captured[0])),
+                           (f"deep pair (bounce {DEEP_BOUNCE - 1})",
+                            merged(captured[-1]))):
+            kargs, _ = sw.sweep_inputs(sc, *rays)
+            k1_case(f"{name}, T {t_wide}", kargs, int(rays[2].sum()),
+                    sc.cl_slot2tri.long(), strict=True)
+    sc = wide_scenes[512]
+    kargs, _ = sw.sweep_inputs(sc, origin, direction, ones,
+                               torch.zeros_like(ones))
+    cut, cut_slots = cut_blocks(sc.cl_trifeat, sc.cl_slot2tri.long(),
+                                RAGGED_WIDE_T)
+    k1_case(f"primary, ragged T {RAGGED_WIDE_T}", (*kargs[:5], cut),
+            RAYS_PER_TILE, cut_slots, strict=True)
+    t0 = time.perf_counter()
+    widest_host, _ = ortf.build_test_scene(
+        WIDEST_SUBDIV, material=preset_materials()["tear_glass"])
+    widest = widest_host.build(cluster_size=WIDEST_T)
+    print(f"scene: {widest.n_triangles} triangles in "
+          f"{widest.cl_trifeat.shape[0]} clusters of {WIDEST_T}, built in "
+          f"{time.perf_counter() - t0:.2f} s")
+    gw, gh = WIDEST_GRID
+    gu, gv = torch.meshgrid((torch.arange(gw, device=dev) + 0.5) / gw,
+                            (torch.arange(gh, device=dev) + 0.5) / gh,
+                            indexing="xy")
+    grid_o, grid_d = camera.generate_rays(gu.reshape(-1), gv.reshape(-1))
+    grid_ones = torch.ones(gw * gh, dtype=torch.bool, device=dev)
+    kargs, _ = sw.sweep_inputs(widest, grid_o, grid_d, grid_ones,
+                               torch.zeros_like(grid_ones))
+    k1_case(f"primary {gw}x{gh}, T {WIDEST_T}", kargs, gw * gh,
+            widest.cl_slot2tri.long(), strict=True)
 
     # span latency: G tiles of rays that hit nothing, every tile entry
     # distance 0 and every cap INF, so no stop test fires and each tile
     # walks exactly SPAN_WALK spans
-    far = torch.tensor([0.0, 1000.0, 0.0], device=dev)
-    up = torch.tensor([0.0, 1.0, 0.0], device=dev)
     for n_tiles in (1, 132, 1024):
-        n = n_tiles * sw.TILE_R
-        best0 = ci.init_best(n, dev)
-        best0[:, 3] = sw.INF
-        walk = (torch.arange(n_tiles, device=dev)[:, None] * 7
-                + torch.arange(SPAN_WALK, device=dev)[None, :]) % n_clusters
-        spans = torch.zeros((n_tiles, n_clusters), dtype=torch.int32,
-                            device=dev)
-        spans[:, :SPAN_WALK] = walk.to(torch.int32)
         name = f"span latency, {n_tiles} tile(s)"
-        k1_case(name, (
-            torch.full((n_tiles,), SPAN_WALK, dtype=torch.int32, device=dev),
-            spans, torch.zeros((n_tiles, n_clusters), device=dev),
-            sw.ray_features(far.expand(n, 3), up.expand(n, 3)), best0,
-            scene.cl_trifeat.contiguous()), n)
-        if int(sw.sweep_plain.visited.min()) != SPAN_WALK:
-            fail(f"K1 {name}: a tile stopped before {SPAN_WALK} spans")
-        c = k1[name]
-        print(f"K1 {name}: {(c['ms'] - c['clone_ms']) / SPAN_WALK * 1e3:.2f} "
-              f"us per span of a tile's walk ({SPAN_WALK} spans each)")
+        k1_case(name, staging.walk_inputs(scene.cl_trifeat, n_tiles),
+                n_tiles * sw.TILE_R)
+        if int(sw.sweep_plain.visited.min()) != staging.SPAN_WALK:
+            fail(f"K1 {name}: a tile stopped before {staging.SPAN_WALK} "
+                 "spans")
+        print(f"K1 {name}: {k1[name]['us_per_span']:.2f} us per span of a "
+              f"tile's walk ({staging.SPAN_WALK} spans each)")
 
     # 4. K2 vs plain at the schedule path's shapes: every round of the
     # primary cast and of the first bounce's bounce cast is compared; the
     # first round and the round with the most elected spans are timed
     real_ci = sched.cluster_intersect
 
-    def all_rounds(o, d, mask):
+    def all_rounds(sc, o, d, mask):
         seen = []
 
         def capture(rayfeat, best, spans, nspan, trifeat):
@@ -1124,77 +1205,123 @@ def main() -> int:
         sched.cluster_intersect = capture
         try:
             with torch.no_grad():
-                sched.closest_hit_scheduled(scene, o, d, sched_config,
+                sched.closest_hit_scheduled(sc, o, d, sched_config,
                                             mask=mask)
         finally:
             sched.cluster_intersect = real_ci
         return seen
 
-    def elected_spans(spans, nspan):
+    def elected_spans(spans, nspan, c):
         return (torch.arange(spans.shape[1], device=dev)[None, :]
-                < nspan[:, None]) & (spans < n_clusters)
+                < nspan[:, None]) & (spans < c)
+
+    def round_bound(r, c):
+        rayfeat, best0, spans, nspan, trifeat = r
+        elected = elected_spans(spans, nspan, c)
+        visits = int(elected.sum()) * (sched.RAY_TILE // 128)
+        return probes.span_bound(
+            visits, int(torch.unique(spans[elected]).numel()),
+            trifeat.shape[2] // 4, best0.shape[0],
+            index_bytes=(spans.numel() + nspan.numel()) * 4), visits, \
+            int(elected.sum(dim=1).max())
 
     k2 = {}
-    for cast, rays in (("primary", (origin, direction, ones)),
-                       ("bounce", (o_cls, d_cls, m_cls))):
-        rounds = all_rounds(*rays)
+
+    def k2_cast(sc, cast, rays, trifeat=None, slots=slot2tri, busiest=True,
+                strict=False):
+        """Hold every round's K2 launch of one scheduled cast against the
+        plain version and time the first round (and the one with the most
+        elected spans). trifeat replaces the scene's blocks in every
+        round's launch. Returns the rounds."""
+        rounds = all_rounds(sc, *rays)
+        if trifeat is not None:
+            rounds = [(*r[:4], trifeat) for r in rounds]
+        c = sc.cl_trifeat.shape[0]
         err = 0.0
-        for i, (rayfeat, best0, spans, nspan, trifeat) in enumerate(rounds):
+        for i, (rayfeat, best0, spans, nspan, tf) in enumerate(rounds):
             got = ci.cluster_intersect(rayfeat, best0.clone(), spans, nspan,
-                                       trifeat)
+                                       tf)
             want = ci.cluster_intersect_plain(rayfeat, best0, spans, nspan,
-                                              trifeat)
+                                              tf)
             torch.cuda.synchronize()
             e, agree, tri_agree = compare_records(
-                got, want, slot2tri, f"K2 {cast} round {i}")
+                got, want, slots, f"K2 {cast} round {i}", strict=strict)
             err = max(err, e)
         print(f"K2 cluster_intersect {cast}: {len(rounds)} rounds, each "
               f"held against the plain version | max |dt| {err:.3g}")
-        n_elected = [int(elected_spans(r[2], r[3]).sum()) for r in rounds]
-        busiest = max(range(len(rounds)), key=n_elected.__getitem__)
-        for i in sorted({0, busiest}):
-            rayfeat, best0, spans, nspan, trifeat = rounds[i]
-            elected = elected_spans(spans, nspan)
-            visits = n_elected[i] * (sched.RAY_TILE // 128)
-            bound = span_bound(
-                visits, int(torch.unique(spans[elected]).numel()), t_blk,
-                best0.shape[0],
-                index_bytes=(spans.numel() + nspan.numel()) * 4)
+        n_elected = [round_bound(r, c)[1] for r in rounds]
+        top = max(range(len(rounds)), key=n_elected.__getitem__)
+        for i in sorted({0, top} if busiest else {0}):
+            rayfeat, best0, spans, nspan, tf = rounds[i]
+            bound, visits, walk = round_bound(rounds[i], c)
             ms = cuda_ms(lambda: ci.cluster_intersect(
-                rayfeat, best0.clone(), spans, nspan, trifeat))
+                rayfeat, best0.clone(), spans, nspan, tf))
             plain_ms = cuda_ms(lambda: ci.cluster_intersect_plain(
-                rayfeat, best0, spans, nspan, trifeat), repeats=2)
+                rayfeat, best0, spans, nspan, tf), repeats=2)
             name = f"{cast} round {i}"
             k2[name] = dict(err=err, ms=ms, plain_ms=plain_ms, bound=bound,
-                            visits=visits)
+                            visits=visits,
+                            us_per_span=ms * 1e3 / max(walk, 1))
             print(f"K2 cluster_intersect {name} of {len(rounds)}: "
                   f"{best0.shape[0]} rays ({int(rays[2].sum())} live), "
                   f"{spans.shape[0]} tiles of {sched.RAY_TILE}, K "
-                  f"{spans.shape[1]}, elected spans {visits} (max "
-                  f"{int(nspan.max())} per tile) | kernel {ms:.3f} ms "
+                  f"{spans.shape[1]}, T {tf.shape[2] // 4}, elected spans "
+                  f"{visits} (max {walk} per tile) | kernel {ms:.3f} ms "
                   f"(incl. record copy), plain {plain_ms:.3f} ms, bound "
                   f"{bound[0]:.4f} ms by {bound[1]} (operations "
-                  f"{bound[2]:.4f} ms, bytes {bound[3]:.4f} ms)")
-        if cast == "bounce":
-            # the mean launch over all rounds of the cast, each on a fresh
-            # copy of its records: the figure that scales the pass
-            copies = [r[1].clone() for r in rounds]
-            start, end = (torch.cuda.Event(enable_timing=True)
-                          for _ in range(2))
-            for timed_run in (False, True):
-                start.record()
-                for r, rec in zip(rounds, copies):
-                    rec.copy_(r[1])
-                    ci.cluster_intersect(r[0], rec, *r[2:])
-                end.record()
-                torch.cuda.synchronize()
+                  f"{bound[2]:.4f} ms, bytes {bound[3]:.4f} ms) | "
+                  f"{k2[name]['us_per_span']:.2f} us per elected span of "
+                  "the busiest tile")
+        return rounds
+
+    k2_cast(scene, "primary", (origin, direction, ones))
+    rounds = k2_cast(scene, "bounce", (o_cls, d_cls, m_cls))
+    # the mean launch over all rounds of the bounce cast, each on a fresh
+    # copy of its records: the figure that scales the pass; beside it the
+    # plain version's mean over the same rounds and the mean bound
+    copies = [r[1].clone() for r in rounds]
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    for fn in (ci.cluster_intersect, ci.cluster_intersect_plain):
+        for _ in range(2):   # a warm-up run, then the timed one
+            start.record()
+            for r, rec in zip(rounds, copies):
+                rec.copy_(r[1])
+                fn(r[0], rec, *r[2:])
+            end.record()
+            torch.cuda.synchronize()
+        if fn is ci.cluster_intersect:
             k2_mean_ms = start.elapsed_time(end) / len(rounds)
-            print(f"K2 cluster_intersect {cast}: mean launch over the "
-                  f"{len(rounds)} rounds {k2_mean_ms:.4f} ms (incl. record "
-                  f"copy), elected spans per round mean "
-                  f"{sum(n_elected) / len(rounds):.1f} max {max(n_elected)}")
-    # the kernels line reports the call with the most work
+        else:
+            k2_mean_plain_ms = start.elapsed_time(end) / len(rounds)
+    bounds = [round_bound(r, n_clusters) for r in rounds]
+    n_elected = [b[1] for b in bounds]
+    print(f"K2 cluster_intersect bounce: mean launch over the "
+          f"{len(rounds)} rounds {k2_mean_ms:.4f} ms (incl. record copy), "
+          f"plain {k2_mean_plain_ms:.4f} ms, mean bound "
+          f"{sum(b[0][0] for b in bounds) / len(rounds):.4f} ms (operations "
+          f"on {sum(b[0][1] == 'operations' for b in bounds)} of "
+          f"{len(rounds)} rounds), elected spans per round mean "
+          f"{sum(n_elected) / len(rounds):.1f} max {max(n_elected)}")
+    # the kernels line reports the call with the most work on the main
+    # path's blocks of 256
     k2_main = max(k2, key=lambda name: (k2[name]["visits"], k2[name]["ms"]))
+
+    # the wide blocks of phase 3: the primary and the first bounce's cast,
+    # every round equal to the plain version
+    for t_wide, sc in wide_scenes.items():
+        for cast, rays in (("primary", (origin, direction, ones)),
+                           ("bounce", (o_cls, d_cls, m_cls))):
+            k2_cast(sc, f"{cast}, T {t_wide}", rays,
+                    slots=sc.cl_slot2tri.long(), busiest=False, strict=True)
+    sc = wide_scenes[512]
+    cut, cut_slots = cut_blocks(sc.cl_trifeat, sc.cl_slot2tri.long(),
+                                RAGGED_WIDE_T)
+    k2_cast(sc, f"primary, ragged T {RAGGED_WIDE_T}",
+            (origin, direction, ones), trifeat=cut, slots=cut_slots,
+            busiest=False, strict=True)
+    k2_cast(widest, f"primary {gw}x{gh}, T {WIDEST_T}",
+            (grid_o, grid_d, grid_ones), slots=widest.cl_slot2tri.long(),
+            busiest=False, strict=True)
 
     # 5. the default render (sweep tracer)
     rays = WIDTH * HEIGHT * config.spp_per_pass * (1 + 2 * BOUNCES)
@@ -1278,6 +1405,29 @@ def main() -> int:
     compare_images("schedule vs sweep", sched_small, sweep_small,
                    "128x64, 2 spp, on the card | ")
 
+    # the full frame on the scene in blocks of 1,024 triangles: one pass
+    # with each cluster tracer, held against phase 5's first pass (blocks
+    # of 256; the same frame index draws the same samples)
+    for label, cfg in (("sweep", config), ("schedule", sched_config)):
+        sw.sweep.launches = sw.sweep_plain.calls = 0
+        ci.cluster_intersect.launches = ci.cluster_intersect_plain.calls = 0
+        keep = []
+        _, pass_s = timed_passes(ortf, wide_scenes[1024], camera, cfg, 1,
+                                 keep=keep)
+        launched = (sw.sweep.launches, ci.cluster_intersect.launches)
+        plain = sw.sweep_plain.calls + ci.cluster_intersect_plain.calls
+        compare_images(
+            f"blocks of 1024, {label} tracer", keep[0], first_passes[0],
+            f"{WIDTH}x{HEIGHT}, {BOUNCES} bounces, one pass (no warm-up) "
+            f"{pass_s[0]:.3f} s | K1 launches {launched[0]}, K2 launches "
+            f"{launched[1]}, plain calls {plain} | against the pass on "
+            "blocks of 256: ")
+        if (launched[0] > 0) != (label == "sweep") \
+                or (launched[1] > 0) != (label == "schedule") or plain:
+            fail(f"blocks of 1024, {label} tracer: K1 launches "
+                 f"{launched[0]}, K2 launches {launched[1]}, plain calls "
+                 f"{plain}")
+
     # 8. BRDF mode
     brdf = config.replace(enable_bsdf=False)
     img, pass_s = timed_passes(ortf, scene, camera, brdf, 1)
@@ -1305,7 +1455,8 @@ def main() -> int:
 
     # 10-11. the probe kernels and the probes; 12. the gradient path
     probe_entries, probe_counts = probe_phases(scene, camera, config)
-    grad_ref = grad_phases(ortf, scene, camera, config, k1_launches // 3)
+    grad_ref = grad_phases(ortf, scene, camera, config, k1_launches // 3,
+                           wide_scenes[1024])
 
     # 13. the CLI; 14. multi-device
     cli_phase(ortf, scene, camera, config)
@@ -1315,6 +1466,9 @@ def main() -> int:
         profile_pass("sweep", ortf, scene, camera, config)
         profile_k1_casts(ortf, sw, scene, camera, config)
         profile_pass("schedule", ortf, scene, camera, sched_config)
+
+    print(f"chip_smoke: every phase passed in "
+          f"{time.perf_counter() - t_start:.1f} s")
 
     def entry(name, replaces, launches, cases, main_case):
         c = cases[main_case]

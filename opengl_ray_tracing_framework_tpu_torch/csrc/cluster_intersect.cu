@@ -34,11 +34,14 @@
 // each thread keeps its rays' least key (t, j, k) over all spans, and the
 // warps and the cluster's CTAs meet once, at the end. The key orders equal
 // t by span position j and then lane k, which is the tie rule of the loop
-// over j. The mean launch of a bounce cast's rounds is 0.054 ms, of a
-// whole schedule pass 0.026 ms (NVIDIA H100 80GB HBM3, 700 W,
-// chip_smoke.py phase 4 and --profile).
+// over j. Blocks of 256 < T <= 4,096 triangles stream as chunks of at most
+// 256 of a CTA's columns per span (tensor-map copies, mt_span.cuh); a key
+// holds a 12-bit lane and a 19-bit span position. The mean launch of a
+// bounce cast's rounds is 0.054 ms, of a whole schedule pass 0.026 ms
+// (NVIDIA H100 80GB HBM3, 700 W, chip_smoke.py phase 4 and --profile).
 
 #include <cooperative_groups.h>
+#include <cuda.h>
 #include <cuda_runtime.h>
 
 #include "mt_span.cuh"
@@ -63,8 +66,13 @@ __device__ __forceinline__ int next_span(const int* span_row, int j, int limit,
   return j;
 }
 
+// MODE is how a CTA fills its span buffers (mt::Mode); `map` is read by
+// TENSOR only. The elected spans are a stream of (span, chunk) items, one
+// chunk per span unless the CTA's columns exceed a buffer.
+template <int MODE>
 __global__ void __launch_bounds__(CTA_THREADS, 1)
-cluster_intersect_kernel(const float* __restrict__ rayfeat,
+cluster_intersect_kernel(const __grid_constant__ CUtensorMap map,
+                         const float* __restrict__ rayfeat,
                          float* __restrict__ best,
                          const int* __restrict__ spans,
                          const int* __restrict__ nspan,
@@ -72,6 +80,7 @@ cluster_intersect_kernel(const float* __restrict__ rayfeat,
                          int rays_per_tile, int n_spans, int n_clusters,
                          int t_blk, int tc) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
+  constexpr bool ASYNC = MODE != mt::HAND;
   cg::cluster_group cluster = cg::this_cluster();
   const int size = cluster.num_blocks();
   const int rank = cluster.block_rank();
@@ -88,18 +97,21 @@ cluster_intersect_kernel(const float* __restrict__ rayfeat,
   if (jc >= limit) return;
 
   const mt::Smem sm = mt::carve(smem_raw);
-  const bool bulk = (t_blk & 3) == 0;
-  const int stride = bulk ? t_blk : tc;   // floats per run in a span buffer
-  mt::init_smem(sm, bulk, cluster, tid);
+  const mt::Share sh = mt::share<MODE>(t_blk, tc, rank);
+  const int n_chunks = sh.n_chunks;
+  mt::init_smem(sm, ASYNC, cluster, tid);
 
   const size_t block = static_cast<size_t>(N_FEAT) * 4 * t_blk;
-  int jp = jc;      // next position whose copy has not been started
-  if (bulk) {
+  int jp = jc, qp = 0;   // the next item whose copy has not been started
+  if (ASYNC) {
     for (int s = 0; s < STAGES && jp < limit; ++s) {
       if (tid == 0)
-        mt::stage_bulk(mt::span_buffer(sm, s), sm.bar + s,
-                       trifeat + span_row[jp] * block, t_blk);
-      jp = next_span(span_row, jp + 1, limit, n_clusters);
+        mt::stage_async<MODE>(mt::span_buffer(sm, s), sm.bar + s, trifeat,
+                              &map, span_row[jp], t_blk, sh, qp);
+      if (++qp == n_chunks) {
+        qp = 0;
+        jp = next_span(span_row, jp + 1, limit, n_clusters);
+      }
     }
   }
 
@@ -116,27 +128,33 @@ cluster_intersect_kernel(const float* __restrict__ rayfeat,
 #pragma unroll
   for (int r = 0; r < RAYS_PER_THREAD; ++r) key[r] = mt::NO_HIT;
 
-  int slot = 0;
+  int q = 0, slot = 0;
   uint32_t parity = 0;
-  while (jc < limit) {
+  for (;;) {
     float* buf = mt::span_buffer(sm, slot);
-    if (bulk) {
+    if (ASYNC) {
       mt::mbar_wait(sm.bar + slot, parity);
     } else {
-      mt::stage_ragged(buf, trifeat + span_row[jc] * block, t_blk, tc, tid);
+      mt::stage_hand(buf, trifeat + span_row[jc] * block, t_blk, sh, q, tid);
       __syncthreads();
     }
-    mt::intersect_share(buf, stride, rank * tc, tc,
-                        static_cast<uint32_t>(jc) << (mt::KEY_LANE_BITS + 1),
-                        grp, f, key);
-    jc = next_span(span_row, jc + 1, limit, n_clusters);
-    if (jc >= limit) break;   // the reduction's barrier ends the last span
+    mt::intersect_chunk<MODE>(
+        buf, sh, q, static_cast<uint32_t>(jc) << (mt::KEY_LANE_BITS + 1),
+        grp, f, key);
+    if (++q == n_chunks) {
+      q = 0;
+      jc = next_span(span_row, jc + 1, limit, n_clusters);
+      if (jc >= limit) break;   // the reduction's barrier ends the last item
+    }
     __syncthreads();          // the buffer is free
-    if (bulk && jp < limit) {
+    if (ASYNC && jp < limit) {
       if (tid == 0)
-        mt::stage_bulk(buf, sm.bar + slot, trifeat + span_row[jp] * block,
-                       t_blk);
-      jp = next_span(span_row, jp + 1, limit, n_clusters);
+        mt::stage_async<MODE>(buf, sm.bar + slot, trifeat, &map, span_row[jp],
+                              t_blk, sh, qp);
+      if (++qp == n_chunks) {
+        qp = 0;
+        jp = next_span(span_row, jp + 1, limit, n_clusters);
+      }
     }
     if (++slot == STAGES) {
       slot = 0;
@@ -169,10 +187,15 @@ extern "C" int cluster_intersect_max_spans() {
   return 1 << (32 - mt::KEY_LANE_BITS - 1);
 }
 
+// The widest cluster block (T) the kernel takes.
+extern "C" int cluster_intersect_max_block_tris() {
+  return mt::MAX_BLOCK_TRIS;
+}
+
 // rayfeat (R, 16) f32; best (R, 8) f32, updated in place; spans (G, K) i32;
-// nspan (G,) i32; trifeat (C, 16, 4T) f32; R = G * rays_per_tile and
-// rays_per_tile a multiple of 128. Launches on `stream` and returns the
-// CUDA error of the launch (0: none).
+// nspan (G,) i32; trifeat (C, 16, 4T) f32, T <= MAX_BLOCK_TRIS; R = G *
+// rays_per_tile and rays_per_tile a multiple of 128. Launches on `stream`
+// and returns the CUDA error of the launch (0: none).
 extern "C" int cluster_intersect_launch(const float* rayfeat, float* best,
                                         const int* spans, const int* nspan,
                                         const float* trifeat, int n_rays,
@@ -181,10 +204,9 @@ extern "C" int cluster_intersect_launch(const float* rayfeat, float* best,
                                         void* stream) {
   if (n_rays <= 0 || n_spans <= 0)
     return static_cast<int>(cudaGetLastError());
-  const int n_blocks = n_rays / TILE_R;
-  const mt::Cut cut = mt::cut_launch(n_blocks, t_blk);
-  return static_cast<int>(mt::launch(
-      cluster_intersect_kernel, n_blocks, cut,
-      static_cast<cudaStream_t>(stream), rayfeat, best, spans, nspan, trifeat,
-      rays_per_tile, n_spans, n_clusters, t_blk, cut.tc));
+  return static_cast<int>(mt::launch_staged(
+      cluster_intersect_kernel<mt::BULK>, cluster_intersect_kernel<mt::TENSOR>,
+      cluster_intersect_kernel<mt::HAND>, n_rays / TILE_R, n_clusters, t_blk,
+      trifeat, static_cast<cudaStream_t>(stream), rayfeat, best, spans, nspan,
+      trifeat, rays_per_tile, n_spans, n_clusters, t_blk));
 }

@@ -39,6 +39,14 @@
 //     distributed shared memory and one cluster barrier per reduction
 //     (at size 8 most of a span's 2.8 us are the barriers and the
 //     exchange: the walk of one tile scales 3.8x on 8 SMs).
+// A span buffer holds 41 runs of CHUNK_TRIS = 256 floats. A wider block
+// (256 < T <= 4,096, the reference's Scene.build(cluster_size=512 / 1024))
+// is walked as chunks of at most 256 of the CTA's own columns through the
+// same two buffers: each chunk arrives by one tensor-map copy
+// (cp.async.bulk.tensor.2d: trifeat seen as C * 64 rows of T floats, a box
+// of 41 rows x the chunk's columns), every chunk folds into the rays' keys,
+// and the keys are reduced, tested and exchanged once per span as for a
+// narrow block. A T that is no multiple of 4 is hand-copied chunk by chunk.
 // Numerics are those of the first design bit for bit: each of A, TN, U, V
 // is the same chain of ten fmaf over rows 0..9, the same tests, the IEEE
 // division tn / a and the 1e-5 pullback. A ray's result of a span is the
@@ -50,7 +58,9 @@
 #pragma once
 
 #include <cooperative_groups.h>
+#include <cuda.h>
 #include <cuda_runtime.h>
+#include <dlfcn.h>
 #include <math_constants.h>
 #include <stdint.h>
 
@@ -63,7 +73,9 @@ constexpr int N_FEAT = 16;      // rayfeat width
 constexpr int BEST_W = 8;       // best-record width
 constexpr int USED_ROWS = 10;   // rayfeat rows 10..15 are always 0
 constexpr int PIECES = 4 * USED_ROWS + 1;   // T-float runs of a cluster block
-constexpr int MAX_BLOCK_TRIS = 256;         // T of the widest cluster block
+constexpr int CHUNK_TRIS = 256;             // columns a span buffer holds
+constexpr int MAX_BLOCK_TRIS = 4096;        // T of the widest cluster block
+constexpr int FEAT_RUNS = 64;               // T-float runs of a block: 16 x 4
 constexpr int RAYS_PER_THREAD = 4;          // a warp holds the whole tile
 constexpr int TRIS_PER_STEP = 4;            // triangle columns per load
 constexpr int TRI_GROUPS = 8;               // warps of a CTA
@@ -71,11 +83,12 @@ constexpr int CTA_THREADS = 32 * TRI_GROUPS;
 constexpr int STAGES = 2;                   // span buffers of a CTA's ring
 constexpr int KEY_TURNS = 3;                // key boxes in rotation
 constexpr int MAX_CLUSTER = 8;              // CTAs sharing one tile
-constexpr int KEY_LANE_BITS = 9;            // lane k < 512 in a key
+constexpr int KEY_LANE_BITS = 12;           // lane k < 4096 in a key
 constexpr float INF_T = 114514.0f;
 constexpr float T_MIN = 0.0005f;
 
 static_assert(32 * RAYS_PER_THREAD == TILE_R, "a warp holds one tile");
+static_assert(MAX_BLOCK_TRIS <= 1 << KEY_LANE_BITS, "a key names every lane");
 
 using Key = unsigned long long;
 constexpr Key NO_HIT = ~0ull;
@@ -89,9 +102,19 @@ struct Cut {
   int tc;        // triangle columns of each span a CTA tests (multiple of 4)
 };
 
-// a span buffer holds one whole cluster block, 41 runs of up to 256 floats
+// How a CTA fills its span buffers: one bulk copy of the whole block (T <=
+// 256, a multiple of 4), one tensor-map copy per chunk of its own columns
+// (T > 256, a multiple of 4), or a hand copy per chunk (T no multiple of 4).
+enum Mode { BULK = 0, TENSOR = 1, HAND = 2 };
+
+static Mode staging(int t_blk) {
+  return t_blk % 4 ? HAND : t_blk <= CHUNK_TRIS ? BULK : TENSOR;
+}
+
+// a span buffer holds 41 runs of up to 256 floats: a whole block of T <=
+// 256, or one chunk of a wider block's columns
 constexpr size_t RING_BYTES =
-    sizeof(float) * STAGES * PIECES * MAX_BLOCK_TRIS;
+    sizeof(float) * STAGES * PIECES * CHUNK_TRIS;
 constexpr size_t SMEM_BYTES =
     RING_BYTES + sizeof(Key) * TILE_R * (KEY_TURNS + 2 * MAX_CLUSTER)
     + sizeof(uint64_t) * STAGES;
@@ -124,20 +147,112 @@ static Cut cut_launch(int n_tiles, int t_blk) {
   return c;
 }
 
+// A CTA's share of every span, walked as chunks: columns [col0, col0 + tc)
+// of the block, chunk q being [col0 + q * width, col0 + q * width + n_q)
+// with n_q = min(width, tc - q * width). A BULK buffer holds the whole block
+// (one chunk, runs of T floats); a TENSOR or HAND buffer one chunk (runs of
+// `width` floats).
+struct Share {
+  int col0, tc, width, n_chunks;
+};
+
+template <int MODE>
+__host__ __device__ __forceinline__ Share share(int t_blk, int tc,
+                                                int rank) {
+  Share s;
+  s.col0 = rank * tc;
+  s.tc = tc;
+  if (MODE == BULK) {
+    s.width = t_blk;
+    s.n_chunks = 1;
+  } else {
+    s.width = tc < CHUNK_TRIS ? tc : CHUNK_TRIS;
+    s.n_chunks = (tc + CHUNK_TRIS - 1) / CHUNK_TRIS;
+  }
+  return s;
+}
+
+// cuTensorMapEncodeTiled, from libcuda, which the runtime has loaded
+using EncodeTiled = CUresult (*)(
+    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+    CUtensorMapFloatOOBfill);
+
+static EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* libcuda = dlopen("libcuda.so.1", RTLD_NOW | RTLD_LOCAL);
+    if (libcuda != nullptr)
+      fn = reinterpret_cast<EncodeTiled>(
+          dlsym(libcuda, "cuTensorMapEncodeTiled"));
+  }
+  return fn;
+}
+
+// The tensor map of trifeat (C, 16, 4T) seen as C * 64 rows of T floats
+// (row c * 64 + p is piece p of cluster c), with a box of 41 rows x
+// `width` columns: one chunk of one span. T must be a multiple of 4 (the
+// row stride a multiple of 16 bytes) and trifeat 16-byte aligned. Encoded
+// once per (pointer, C, T, width): a map names only an address and a shape.
+static cudaError_t tensor_map(CUtensorMap* map, const float* trifeat,
+                              int n_clusters, int t_blk, int width) {
+  struct Entry {
+    const float* ptr;
+    int c, t, w;
+    CUtensorMap map;
+  };
+  constexpr int N_ENTRIES = 8;
+  static Entry cache[N_ENTRIES] = {};
+  static int next = 0;
+  for (const Entry& e : cache)
+    if (e.ptr == trifeat && e.c == n_clusters && e.t == t_blk
+        && e.w == width) {
+      *map = e.map;
+      return cudaSuccess;
+    }
+  const EncodeTiled encode = encoder();
+  if (encode == nullptr) return cudaErrorSharedObjectSymbolNotFound;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(t_blk),
+                              static_cast<cuuint64_t>(n_clusters) * FEAT_RUNS};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(t_blk)
+                                 * sizeof(float)};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(width),
+                             static_cast<cuuint32_t>(PIECES)};
+  const cuuint32_t steps[2] = {1, 1};
+  if (encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2,
+             const_cast<float*>(trifeat), dims, strides, box, steps,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return cudaErrorInvalidValue;
+  Entry& e = cache[next];
+  next = (next + 1) % N_ENTRIES;
+  e.ptr = trifeat;
+  e.c = n_clusters;
+  e.t = t_blk;
+  e.w = width;
+  e.map = *map;
+  return cudaSuccess;
+}
+
 // Launch `kernel` on n_tiles * cut.cluster CTAs in clusters of cut.cluster.
 // Returns the error of a refused shared-memory request or launch. Internal
-// linkage: `granted` belongs to this library's kernel, and a second loaded
-// copy of the library must not share it.
+// linkage: `granted` belongs to this library's kernels (one per staging
+// mode), and a second loaded copy of the library must not share it.
 template <typename... Params, typename... Args>
 static cudaError_t launch(void (*kernel)(Params...), int n_tiles,
                           const Cut& cut, cudaStream_t stream, Args... args) {
-  static bool granted = false;
-  if (!granted) {
+  static const void* granted[3] = {};   // kernels given SMEM_BYTES
+  const void* key = reinterpret_cast<const void*>(kernel);
+  int i = 0;
+  while (i < 3 && granted[i] != nullptr && granted[i] != key) ++i;
+  if (i == 3 || granted[i] != key) {
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(SMEM_BYTES));
     if (err != cudaSuccess) return err;
-    granted = true;
+    if (i < 3) granted[i] = key;
   }
   cudaLaunchAttribute attr;
   attr.id = cudaLaunchAttributeClusterDimension;
@@ -155,6 +270,31 @@ static cudaError_t launch(void (*kernel)(Params...), int n_tiles,
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
+// Launch the BULK, TENSOR or HAND instance of one kernel, as staging(T)
+// picks, for a T-column block. Every instance takes the TENSOR instance's
+// tensor map first (zeros for the others), then `args`, then the columns
+// of a span each CTA tests.
+template <typename... Params, typename... Args>
+static cudaError_t launch_staged(void (*bulk)(Params...),
+                                 void (*tensor)(Params...),
+                                 void (*hand)(Params...), int n_tiles,
+                                 int n_clusters, int t_blk,
+                                 const float* trifeat, cudaStream_t stream,
+                                 Args... args) {
+  if (t_blk < 1 || t_blk > MAX_BLOCK_TRIS) return cudaErrorInvalidValue;
+  const Cut cut = cut_launch(n_tiles, t_blk);
+  const Mode mode = staging(t_blk);
+  CUtensorMap map = {};
+  if (mode == TENSOR) {
+    const cudaError_t err =
+        tensor_map(&map, trifeat, n_clusters, t_blk,
+                   share<TENSOR>(t_blk, cut.tc, 0).width);
+    if (err != cudaSuccess) return err;
+  }
+  return launch(mode == BULK ? bulk : mode == TENSOR ? tensor : hand,
+                n_tiles, cut, stream, map, args..., cut.tc);
+}
+
 // ---------------------------------------------------------------------------
 // Device side
 // ---------------------------------------------------------------------------
@@ -163,7 +303,7 @@ static cudaError_t launch(void (*kernel)(Params...), int n_tiles,
 // per-ray keys in rotation, two inboxes of the cluster's keys, one
 // mbarrier per span buffer.
 struct Smem {
-  float* ring;     // [STAGES][PIECES * MAX_BLOCK_TRIS]
+  float* ring;     // [STAGES][PIECES * CHUNK_TRIS]
   Key* box;        // [KEY_TURNS][TILE_R]
   Key* inbox;      // [2][MAX_CLUSTER][TILE_R]
   uint64_t* bar;   // [STAGES]
@@ -179,7 +319,7 @@ __device__ __forceinline__ Smem carve(unsigned char* base) {
 }
 
 __device__ __forceinline__ float* span_buffer(const Smem& sm, int slot) {
-  return sm.ring + slot * (PIECES * MAX_BLOCK_TRIS);
+  return sm.ring + slot * (PIECES * CHUNK_TRIS);
 }
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -224,10 +364,10 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
 // Set up the CTA's barriers and key boxes; ends in a cluster barrier, so
 // that every CTA of the cluster runs, with clean boxes, before any of them
 // writes into another's shared memory.
-__device__ __forceinline__ void init_smem(const Smem& sm, bool bulk,
+__device__ __forceinline__ void init_smem(const Smem& sm, bool async,
                                           cg::cluster_group& cluster,
                                           int tid) {
-  if (bulk && tid == 0) {
+  if (async && tid == 0) {
     for (int s = 0; s < STAGES; ++s) mbar_init(sm.bar + s, 1);
     mbar_fence_init();
   }
@@ -253,16 +393,47 @@ __device__ __forceinline__ void stage_bulk(float* buf, uint64_t* bar,
       : "memory");
 }
 
-// The whole CTA copies a cluster block whose T is no multiple of 4 into a
-// buffer of tp = roundup(T, 4) columns; the pad lanes get E = +inf and can
-// never hit. The caller synchronises the CTA before and after.
-__device__ __forceinline__ void stage_ragged(float* buf, const float* block,
-                                             int t_blk, int tp, int tid) {
-  for (int idx = tid; idx < PIECES * tp; idx += CTA_THREADS) {
-    const int p = idx / tp;
-    const int k = idx - p * tp;
-    buf[idx] = k < t_blk ? block[p * t_blk + k]
-                         : (p == PIECES - 1 ? CUDART_INF_F : 0.0f);
+// One thread starts the copy of chunk q of one span (a BULK chunk is the
+// whole block): the chunk has landed when `bar` completes its phase. A
+// TENSOR chunk is a 41 x width box of `map` at column col0 + q * width of
+// the cluster's first row; its last chunk may run past the CTA's columns
+// (or, zero-filled, past T): the surplus columns are never tested.
+template <int MODE>
+__device__ __forceinline__ void stage_async(float* buf, uint64_t* bar,
+                                            const float* trifeat,
+                                            const CUtensorMap* map, int cid,
+                                            int t_blk, const Share& s, int q) {
+  if (MODE == BULK) {
+    stage_bulk(buf, bar,
+               trifeat + static_cast<size_t>(cid) * N_FEAT * 4 * t_blk,
+               t_blk);
+  } else {
+    mbar_expect_tx(bar, PIECES * s.width * sizeof(float));
+    asm volatile(
+        "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::"
+        "complete_tx::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(
+            smem_addr(buf)),
+        "l"(reinterpret_cast<uint64_t>(map)), "r"(s.col0 + q * s.width),
+        "r"(cid * FEAT_RUNS), "r"(smem_addr(bar))
+        : "memory");
+  }
+}
+
+// The whole CTA copies chunk q of a cluster block whose T is no multiple of
+// 4 into a buffer of runs of `width` floats; columns at or past T get E =
+// +inf and can never hit. The caller synchronises the CTA before and after.
+__device__ __forceinline__ void stage_hand(float* buf, const float* block,
+                                           int t_blk, const Share& s, int q,
+                                           int tid) {
+  const int c0 = s.col0 + q * s.width;
+  const int n = min(s.width, s.tc - q * s.width);
+  for (int idx = tid; idx < PIECES * n; idx += CTA_THREADS) {
+    const int p = idx / n;
+    const int k = idx - p * n;
+    const int col = c0 + k;
+    buf[p * s.width + k] = col < t_blk
+                               ? block[p * t_blk + col]
+                               : (p == PIECES - 1 ? CUDART_INF_F : 0.0f);
   }
 }
 
@@ -299,12 +470,13 @@ __device__ __forceinline__ void load_cols(const float* p,
 }
 
 // The rays of one thread (features f) against this warp's steps of the
-// columns [col0, col0 + tc) of the cluster block in tf (41 runs of `stride`
-// floats), folded into the rays' keys. `span_bits` is the span's position
-// already shifted into the key.
+// columns [col0, col0 + tc) of the triangles in tf (41 runs of `stride`
+// floats), folded into the rays' keys; column k of tf is lane lane0 + k of
+// the cluster block. `span_bits` is the span's position already shifted
+// into the key.
 __device__ __forceinline__ void intersect_share(
-    const float* tf, int stride, int col0, int tc, uint32_t span_bits,
-    int grp, const float (&f)[RAYS_PER_THREAD][USED_ROWS],
+    const float* tf, int stride, int col0, int tc, int lane0,
+    uint32_t span_bits, int grp, const float (&f)[RAYS_PER_THREAD][USED_ROWS],
     Key (&key)[RAYS_PER_THREAD]) {
   constexpr int TW = TRIS_PER_STEP;
   for (int k = col0 + TW * grp; k < col0 + tc; k += TW * TRI_GROUPS) {
@@ -334,7 +506,8 @@ __device__ __forceinline__ void intersect_share(
     }
     float e[TW];
     load_cols(col + (PIECES - 1) * stride, e);
-    const uint32_t low = span_bits | (static_cast<uint32_t>(k) << 1);
+    const uint32_t low =
+        span_bits | (static_cast<uint32_t>(lane0 + k) << 1);
 #pragma unroll
     for (int r = 0; r < RAYS_PER_THREAD; ++r) {
       // one branch per ray and step: candidates are rare
@@ -350,6 +523,22 @@ __device__ __forceinline__ void intersect_share(
           if (cand[c]) record(a[r][c], tn[r][c], low + 2 * c, key[r]);
       }
     }
+  }
+}
+
+// The rays of one thread against chunk q of the CTA's share of a span, the
+// chunk in `buf` as share() and stage_async / stage_hand lay it out.
+template <int MODE>
+__device__ __forceinline__ void intersect_chunk(
+    const float* buf, const Share& s, int q, uint32_t span_bits, int grp,
+    const float (&f)[RAYS_PER_THREAD][USED_ROWS],
+    Key (&key)[RAYS_PER_THREAD]) {
+  if (MODE == BULK) {
+    intersect_share(buf, s.width, s.col0, s.tc, 0, span_bits, grp, f, key);
+  } else {
+    const int c0 = q * s.width;
+    intersect_share(buf, s.width, 0, min(s.width, s.tc - c0), s.col0 + c0,
+                    span_bits, grp, f, key);
   }
 }
 

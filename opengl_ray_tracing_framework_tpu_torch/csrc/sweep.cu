@@ -43,9 +43,14 @@
 //     700 W, chip_smoke.py phase 3).
 // The per-span cost beside the FMAs is a CTA barrier, in a cluster the key
 // exchange and a cluster barrier, and a warp-wide maximum for the stop
-// test: a warp holds the whole tile.
+// test: a warp holds the whole tile. Blocks of 256 < T <= 4,096 triangles
+// (the reference's larger cluster_size) take the same walk: a CTA's
+// columns of a span arrive as chunks of at most 256 by tensor-map copies
+// through the same two buffers, every chunk folds into the keys, and the
+// keys are reduced and tested once per span (mt_span.cuh).
 
 #include <cooperative_groups.h>
+#include <cuda.h>
 #include <cuda_runtime.h>
 
 #include "mt_span.cuh"
@@ -71,16 +76,30 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
+__device__ __forceinline__ void next_slot(int& slot, uint32_t& parity) {
+  if (++slot == STAGES) {
+    slot = 0;
+    parity ^= 1;
+  }
+}
+
 // Grid: cluster-size CTAs per tile, in clusters. tc = triangle columns of a
 // span per CTA (T / cluster size, or T rounded up to 4 when T is no
-// multiple of 4: then the cluster is one CTA and stages by hand).
+// multiple of 4: then the cluster is one CTA and stages by hand). MODE is
+// how a CTA fills its span buffers (mt::Mode); `map` is read by TENSOR
+// only. The walk is a stream of (span, chunk) items, one chunk per span
+// unless the CTA's columns exceed a buffer; the copy of item i + 2 starts
+// as soon as item i's buffer is free.
+template <int MODE>
 __global__ void __launch_bounds__(CTA_THREADS, 1)
-sweep_kernel(const int* __restrict__ nspan, const int* __restrict__ spans,
+sweep_kernel(const __grid_constant__ CUtensorMap map,
+             const int* __restrict__ nspan, const int* __restrict__ spans,
              const float* __restrict__ tile_sorted,
              const float* __restrict__ rayfeat, float* __restrict__ best,
              const float* __restrict__ trifeat, int n_clusters, int t_blk,
              int tc) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
+  constexpr bool ASYNC = MODE != mt::HAND;
   cg::cluster_group cluster = cg::this_cluster();
   const int size = cluster.num_blocks();
   const int rank = cluster.block_rank();
@@ -92,21 +111,23 @@ sweep_kernel(const int* __restrict__ nspan, const int* __restrict__ spans,
   if (limit <= 0) return;   // cluster-uniform: the records stay as given
 
   const mt::Smem sm = mt::carve(smem_raw);
-  const bool bulk = (t_blk & 3) == 0;
-  const int stride = bulk ? t_blk : tc;   // floats per run in a span buffer
-  mt::init_smem(sm, bulk, cluster, tid);
+  const mt::Share sh = mt::share<MODE>(t_blk, tc, rank);
+  const int n_chunks = sh.n_chunks;
+  const int n_items = limit * n_chunks;
+  mt::init_smem(sm, ASYNC, cluster, tid);
 
   const size_t block = static_cast<size_t>(N_FEAT) * 4 * t_blk;
   const int* span_row = spans + static_cast<size_t>(g) * n_clusters;
   const float* tn_row = tile_sorted + static_cast<size_t>(g) * n_clusters;
 
-  int started = 0;   // spans whose copy has been started (uniform)
-  if (bulk) {
-    started = min(STAGES, limit);
+  int started = 0;   // items whose copy has been started (uniform)
+  if (ASYNC) {
+    started = min(STAGES, n_items);
     if (tid == 0)
       for (int s = 0; s < started; ++s)
-        mt::stage_bulk(mt::span_buffer(sm, s), sm.bar + s,
-                       trifeat + span_row[s] * block, t_blk);
+        mt::stage_async<MODE>(mt::span_buffer(sm, s), sm.bar + s, trifeat,
+                              &map, span_row[s / n_chunks], t_blk, sh,
+                              s % n_chunks);
   }
 
   // a thread's rays: lane + 32 r of the tile, the same in every warp
@@ -129,34 +150,44 @@ sweep_kernel(const int* __restrict__ nspan, const int* __restrict__ spans,
     anyflag[r] = rec[4] > 0.5f;
   }
 
-  int j = 0, slot = 0;
+  int j = 0, item = 0, slot = 0;
   uint32_t parity = 0;
   for (;; ++j) {
     const int cid = span_row[j];
     // read ahead of the FMAs what the end of the span needs
     const bool last = j + 1 >= limit;
     const float tn_next = last ? 0.0f : tn_row[j + 1];
-    const int cid_ahead = (bulk && j + STAGES < limit) ? span_row[j + STAGES]
-                                                       : -1;
-    float* buf = mt::span_buffer(sm, slot);
-    if (bulk) {
-      mt::mbar_wait(sm.bar + slot, parity);
-    } else {
-      mt::stage_ragged(buf, trifeat + cid * block, t_blk, tc, tid);
-      __syncthreads();
-    }
 
     Key key[RAYS_PER_THREAD];
 #pragma unroll
     for (int r = 0; r < RAYS_PER_THREAD; ++r) key[r] = mt::NO_HIT;
-    mt::intersect_share(buf, stride, rank * tc, tc, 0u, grp, f, key);
-    mt::reduce_keys(key, sm, j, cluster, tid);
-
-    // the buffer is free: start the copy of the span STAGES ahead
-    if (cid_ahead >= 0) {
-      if (tid == 0)
-        mt::stage_bulk(buf, sm.bar + slot, trifeat + cid_ahead * block, t_blk);
-      started = j + STAGES + 1;
+    for (int q = 0;; ++q) {
+      const int ahead = item + STAGES;
+      const int cid_ahead =
+          (ASYNC && ahead < n_items) ? span_row[ahead / n_chunks] : -1;
+      float* buf = mt::span_buffer(sm, slot);
+      if (ASYNC) {
+        mt::mbar_wait(sm.bar + slot, parity);
+      } else {
+        mt::stage_hand(buf, trifeat + cid * block, t_blk, sh, q, tid);
+        __syncthreads();
+      }
+      mt::intersect_chunk<MODE>(buf, sh, q, 0u, grp, f, key);
+      const bool span_done = q + 1 == n_chunks;
+      if (span_done)
+        mt::reduce_keys(key, sm, j, cluster, tid);
+      else if (ASYNC)
+        __syncthreads();   // every warp is done with the chunk
+      // the buffer is free: start the copy of the item STAGES ahead
+      if (cid_ahead >= 0) {
+        if (tid == 0)
+          mt::stage_async<MODE>(buf, sm.bar + slot, trifeat, &map, cid_ahead,
+                                t_blk, sh, ahead % n_chunks);
+        started = ahead + 1;
+      }
+      if (span_done) break;
+      ++item;
+      next_slot(slot, parity);
     }
 
     // stop test: the next span is needed only if its tile entry distance
@@ -176,18 +207,13 @@ sweep_kernel(const int* __restrict__ nspan, const int* __restrict__ spans,
     }
     const float thresh = warp_max(live);
     if (last || !(tn_next < thresh)) break;   // cluster-uniform
-    if (++slot == STAGES) {
-      slot = 0;
-      parity ^= 1;
-    }
+    ++item;
+    next_slot(slot, parity);
   }
 
   // copies still in flight must land before the CTA gives up its memory
-  for (int jj = j + 1; jj < started; ++jj) {
-    if (++slot == STAGES) {
-      slot = 0;
-      parity ^= 1;
-    }
+  for (int ii = item + 1; ii < started; ++ii) {
+    next_slot(slot, parity);
     mt::mbar_wait(sm.bar + slot, parity);
   }
 
@@ -206,6 +232,9 @@ sweep_kernel(const int* __restrict__ nspan, const int* __restrict__ spans,
 
 extern "C" int sweep_tile_rays() { return TILE_R; }
 
+// The widest cluster block (T) the kernel takes.
+extern "C" int sweep_max_block_tris() { return mt::MAX_BLOCK_TRIS; }
+
 // CTAs that share one tile in a launch of n_tiles tiles of T-triangle
 // cluster blocks.
 extern "C" int sweep_cluster_size(int n_tiles, int t_blk) {
@@ -213,15 +242,16 @@ extern "C" int sweep_cluster_size(int n_tiles, int t_blk) {
 }
 
 // nspan (G,) i32; spans, tile_sorted (G, C); rayfeat (G*TILE_R, 16) f32;
-// best (G*TILE_R, 8) f32, updated in place; trifeat (C, 16, 4T) f32.
-// Launches on `stream` and returns the CUDA error of the launch (0: none).
+// best (G*TILE_R, 8) f32, updated in place; trifeat (C, 16, 4T) f32, T <=
+// MAX_BLOCK_TRIS. Launches on `stream` and returns the CUDA error of the
+// launch (0: none).
 extern "C" int sweep_launch(const int* nspan, const int* spans,
                             const float* tile_sorted, const float* rayfeat,
                             float* best, const float* trifeat, int n_tiles,
                             int n_clusters, int t_blk, void* stream) {
   if (n_tiles <= 0) return static_cast<int>(cudaGetLastError());
-  const mt::Cut cut = mt::cut_launch(n_tiles, t_blk);
-  return static_cast<int>(mt::launch(
-      sweep_kernel, n_tiles, cut, static_cast<cudaStream_t>(stream), nspan,
-      spans, tile_sorted, rayfeat, best, trifeat, n_clusters, t_blk, cut.tc));
+  return static_cast<int>(mt::launch_staged(
+      sweep_kernel<mt::BULK>, sweep_kernel<mt::TENSOR>, sweep_kernel<mt::HAND>,
+      n_tiles, n_clusters, t_blk, trifeat, static_cast<cudaStream_t>(stream),
+      nspan, spans, tile_sorted, rayfeat, best, trifeat, n_clusters, t_blk));
 }

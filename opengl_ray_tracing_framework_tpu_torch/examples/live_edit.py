@@ -42,7 +42,8 @@ def main(argv=None) -> dict:
     from ..render import finalize, init_render_state, render_pass
     from ..utils.image import save_render
 
-    _, scene = build_test_scene(n_sphere_subdiv=2, device=args.device)
+    scene_builder, scene = build_test_scene(n_sphere_subdiv=2,
+                                            device=args.device)
     camera = Camera.make(position=(0.0, 0.5, -2.0), yaw=90.0, pitch=-8.0,
                          zoom=30.0, aspect=1.0, device=args.device)
     config = RenderConfig(width=args.size, height=args.size,
@@ -62,10 +63,11 @@ def main(argv=None) -> dict:
 
     # 1. the first render
     frame("before", scene)
-    # 2. the "slider drag": the sphere's material slot (the last one the
+    # 2. the "slider drag": the sphere's material slot (the last object the
     # test scene adds) becomes golden metal
+    slot = scene_builder.objects[-1].material_slot
     scene = scene.with_materials(scene.materials.replace_material(
-        scene.materials.count - 1, preset_materials()["golden"]))
+        slot, preset_materials()["golden"]))
     # 4. the re-render with the edited table
     frame("after", scene)
     out["scene"] = scene

@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
-from typing import Mapping
+from typing import Mapping, NamedTuple
 
 import numpy as np
 import torch
@@ -69,6 +69,17 @@ class SceneData:
     def n_nodes(self) -> int:
         return self.bvh_left.shape[0]
 
+    def triangle_vertices(self, tri_idx: torch.Tensor):
+        """(p1, p2, p3) of triangle ids, clamped to the scene (callers
+        mask)."""
+        safe = torch.clamp(tri_idx, 0, self.n_triangles - 1).long()
+        return self.p1[safe], self.p2[safe], self.p3[safe]
+
+    def triangle_normals(self, tri_idx: torch.Tensor):
+        """(n1, n2, n3) of triangle ids, clamped as triangle_vertices."""
+        safe = torch.clamp(tri_idx, 0, self.n_triangles - 1).long()
+        return self.n1[safe], self.n2[safe], self.n3[safe]
+
     def to(self, device) -> "SceneData":
         return SceneData(**{
             f.name: getattr(self, f.name).to(device)
@@ -111,6 +122,12 @@ def camera_from_numpy(arrays: Mapping, device=None) -> Camera:
         for f in Camera._fields))
 
 
+class SceneObject(NamedTuple):
+    name: str
+    material_slot: int
+    n_triangles: int
+
+
 class Scene:
     """Host-side scene builder (the analogue of InitScene, Scene.h:35-51)."""
 
@@ -118,6 +135,7 @@ class Scene:
         self._tris: list = []          # per-object (p1, p2, p3, n1, n2, n3)
         self._materials: list = []     # Material per slot
         self._mat_slots: list = []     # per-object slot
+        self.objects: list[SceneObject] = []
         self._hdr: np.ndarray | None = None
 
     def add_material(self, material: Material) -> int:
@@ -125,19 +143,22 @@ class Scene:
         return len(self._materials) - 1
 
     def add_object(self, mesh: mesh_lib.MeshData, material, transform=None,
-                   smooth_normal: bool = False, normalize: bool = True
-                   ) -> int:
+                   smooth_normal: bool = False, normalize: bool = True,
+                   name: str = "") -> SceneObject:
         """material: a Material (new slot) or an int slot (shared).
-        Returns the object's material slot."""
+        Returns the object, which is also appended to `objects`."""
         if transform is None:
             transform = np.eye(4, dtype=np.float32)
         slot = (material if isinstance(material, int)
                 else self.add_material(material))
-        self._tris.append(mesh_lib.mesh_to_triangles(
-            mesh, transform, smooth_normal=smooth_normal,
-            normalize=normalize))
+        tris = mesh_lib.mesh_to_triangles(
+            mesh, transform, smooth_normal=smooth_normal, normalize=normalize)
+        self._tris.append(tris)
         self._mat_slots.append(slot)
-        return slot
+        obj = SceneObject(name=name or f"object{len(self.objects)}",
+                          material_slot=slot, n_triangles=tris[0].shape[0])
+        self.objects.append(obj)
+        return obj
 
     def set_environment(self, hdr: np.ndarray) -> None:
         self._hdr = np.asarray(hdr, np.float32)
@@ -237,11 +258,13 @@ def build_reference_scene(objects=("floor", "loong"),
         rot, trans, scale, smooth = _OBJ_TRANSFORMS[name]
         tm = mesh_lib.transform_matrix(rot, trans, scale)
         if name == "floor":
-            scene.add_object(mesh, presets["plane"], tm, smooth_normal=smooth)
+            scene.add_object(mesh, presets["plane"], tm, smooth_normal=smooth,
+                             name=name)
         else:
             if shared_slot is None:
                 shared_slot = scene.add_material(presets[current_material])
-            scene.add_object(mesh, shared_slot, tm, smooth_normal=smooth)
+            scene.add_object(mesh, shared_slot, tm, smooth_normal=smooth,
+                             name=name)
     hdr_path = os.path.join(assets_dir, hdr_name)
     if os.path.exists(hdr_path):
         scene.load_environment(hdr_path)
@@ -259,11 +282,12 @@ def build_test_scene(n_sphere_subdiv: int = 1,
     floor_tm = mesh_lib.transform_matrix((0, 0, 0), (0.0, -1.0, 3.0),
                                          (10.0, 1.0, 10.0))
     scene.add_object(mesh_lib.make_quad(), presets["white"], floor_tm,
-                     smooth_normal=False, normalize=False)
+                     smooth_normal=False, normalize=False, name="floor")
     sphere_tm = mesh_lib.transform_matrix((0, 0, 0), (0.0, 0.0, 3.0),
                                           (1.0, 1.0, 1.0))
     scene.add_object(mesh_lib.make_icosphere(n_sphere_subdiv),
                      material if material is not None else presets["white"],
-                     sphere_tm, smooth_normal=True, normalize=False)
+                     sphere_tm, smooth_normal=True, normalize=False,
+                     name="sphere")
     scene.set_environment(env if env is not None else make_gradient_hdr())
     return scene, scene.build(device=device)

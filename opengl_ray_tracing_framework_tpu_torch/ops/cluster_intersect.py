@@ -28,7 +28,7 @@ from .intersect import INF
 from .sweep import BEST_W, MAX_BLOCK_TRIS, N_FEAT, TILE_R, intersect_span_plain
 
 MAX_SLOTS = 1 << 24   # slot = c*T + k is kept in a float32: exact below 2^24
-MAX_SPANS = 1 << 22   # span positions the kernel's (t, j, k) key can name
+MAX_SPANS = 1 << 19   # span positions the kernel's (t, j, k) key can name
 
 
 def init_best(n_rays: int, device) -> torch.Tensor:
@@ -98,12 +98,17 @@ def _declare(lib):
     lib.cluster_intersect_launch.restype = ctypes.c_int
     lib.cluster_intersect_max_spans.argtypes = []
     lib.cluster_intersect_max_spans.restype = ctypes.c_int
+    lib.cluster_intersect_max_block_tris.argtypes = []
+    lib.cluster_intersect_max_block_tris.restype = ctypes.c_int
     if lib.cluster_intersect_block_rays() != TILE_R:
         raise RuntimeError(
             "csrc/mt_span.cuh TILE_R differs from ops/sweep.py")
     if lib.cluster_intersect_max_spans() != MAX_SPANS:
         raise RuntimeError(
             "csrc/mt_span.cuh KEY_LANE_BITS differs from MAX_SPANS")
+    if lib.cluster_intersect_max_block_tris() != MAX_BLOCK_TRIS:
+        raise RuntimeError(
+            "csrc/mt_span.cuh MAX_BLOCK_TRIS differs from ops/sweep.py")
     return lib
 
 

@@ -49,7 +49,8 @@ TILE_R = 128          # rays per kernel tile; csrc/mt_span.cuh agrees
 N_FEAT = 16           # ray feature vector [o, d, o x d, 1, 0 x 6]
 BEST_W = 8            # record [t, slot, inside, cap, anyhit, 0, 0, 0]
 EPS_ROW = 10          # trifeat row carrying E in the A-group columns
-MAX_BLOCK_TRIS = 256  # a shared-memory span buffer holds 41*256 f32
+MAX_BLOCK_TRIS = 4096  # widest cluster block the kernels take (a 12-bit
+                       # lane in their keys); csrc/mt_span.cuh agrees
 _DEAD_KEY = 1 << 30   # sort key for rays that trace nothing
 _SLAB_CHUNK = 128 * TILE_R   # rays per slab-test chunk
 
@@ -208,16 +209,23 @@ def _declare(lib):
     lib.sweep_launch.restype = ctypes.c_int
     lib.sweep_cluster_size.argtypes = [ctypes.c_int, ctypes.c_int]
     lib.sweep_cluster_size.restype = ctypes.c_int
+    lib.sweep_max_block_tris.argtypes = []
+    lib.sweep_max_block_tris.restype = ctypes.c_int
     if lib.sweep_tile_rays() != TILE_R:
         raise RuntimeError(
             "csrc/mt_span.cuh TILE_R differs from ops/sweep.py")
+    if lib.sweep_max_block_tris() != MAX_BLOCK_TRIS:
+        raise RuntimeError(
+            "csrc/mt_span.cuh MAX_BLOCK_TRIS differs from ops/sweep.py")
     return lib
 
 
 def sweep(nspan, spans, tile_sorted, rayfeat, best, trifeat):
     """The span-sweep kernel: csrc/sweep.cu for CUDA tensors (best is
     updated in place and returned), sweep_plain for CPU tensors. Same
-    contract as sweep_plain. `sweep.launches` counts kernel launches."""
+    contract as sweep_plain; the kernel takes cluster blocks of up to
+    MAX_BLOCK_TRIS triangles and raises ValueError beyond.
+    `sweep.launches` counts kernel launches."""
     dev = rayfeat.device
     if dev.type == "cpu":
         return sweep_plain(nspan, spans, tile_sorted, rayfeat, best, trifeat)

@@ -68,8 +68,10 @@ def bvh_closest_hit(scene, origin, direction, stack_depth: int = 64,
     steps = 0
     while steps < max_steps and bool((sp > 0).any()):
         active = sp > 0
+        # a pop above the stack (its push was dropped) visits the dummy
+        # node 0, a no-op, as the JAX module's out-of-range read does
         node = stack[rows, torch.clamp(sp - 1, 0, stack_depth - 1)]
-        node = torch.where(active, node, 0)
+        node = torch.where(active & (sp <= stack_depth), node, 0)
         n_count, n_first = count[node], first[node]
         n_left, n_right = left[node], right[node]
         is_leaf = active & (n_count > 0)

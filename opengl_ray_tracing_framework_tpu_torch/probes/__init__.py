@@ -21,8 +21,26 @@ import ctypes
 import torch
 
 PEAK_HBM_BYTES = 3.35e12   # H100 SXM HBM3, bytes/s (NVIDIA data sheet)
+PEAK_FP32_FLOPS = 67e12    # H100 SXM, FP32 outside the tensor cores
+FLOPS_PER_PAIR = 80        # 40 FMAs per ray x triangle (csrc/mt_span.cuh)
 L2_BYTES = 50 * 2**20      # H100 SXM L2 cache
 N_SMS = 132                # H100 SXM streaming multiprocessors
+
+
+def span_bound(visits, clusters_read, t_blk, n_rays, index_bytes):
+    """(bound_ms, bound_by, ops_ms, bytes_ms) of a cluster kernel call that
+    walks `visits` (ray tile of 128, cluster) spans over `clusters_read`
+    distinct clusters of T = t_blk triangles: 128 * T * 80 FP32 operations
+    per span; bytes are the 41*T floats of each distinct cluster block
+    once, the ray features once, the records read and written once, and
+    the span lists (index_bytes)."""
+    ops = visits * 128 * t_blk * FLOPS_PER_PAIR
+    nbytes = (clusters_read * 41 * t_blk * 4 + n_rays * (16 + 2 * 8) * 4
+              + index_bytes)
+    ops_ms = ops / PEAK_FP32_FLOPS * 1e3
+    bytes_ms = nbytes / PEAK_HBM_BYTES * 1e3
+    by = "operations" if ops_ms >= bytes_ms else "bytes"
+    return max(ops_ms, bytes_ms), by, ops_ms, bytes_ms
 
 
 def cuda_ms(fn, repeats: int = 20) -> float:

@@ -23,7 +23,8 @@ from ..utils import nvcc
 from . import (N_SMS, PEAK_HBM_BYTES, check_tensor, device_line, graph_ms,
                hbm_ms, launch)
 
-MAX_STAGED_BYTES = 227 * 1024   # H100's opt-in shared memory per block
+MAX_STAGED_BYTES = 227 * 1024 - 16   # H100 opt-in shared memory per block,
+                                    # less the table copy's barrier
 
 
 def probe_gather_plain(table, idx, steps=0, staged=False):
@@ -61,8 +62,9 @@ def _declare(lib):
 def probe_gather(table, idx, steps=0, staged=False):
     """out = table[idx], or `steps` chained lookups: csrc/probe_gather.cu
     on CUDA tensors, probe_gather_plain on CPU tensors. staged=True copies
-    the table into each CTA's shared memory first (it must fit 227 KB).
-    idx is int32. `probe_gather.launches` counts kernel launches."""
+    the table into the shared memory of each CTA first (it must fit 227
+    KB), with as many CTAs as fit per SM. idx is int32.
+    `probe_gather.launches` counts kernel launches."""
     dev = table.device
     if dev.type == "cpu":
         return probe_gather_plain(table, idx, steps, staged)
@@ -83,8 +85,9 @@ def probe_gather(table, idx, steps=0, staged=False):
         raise ValueError("probe_gather: a chained index must fit float32")
     out = torch.empty(idx.shape, dtype=torch.float32, device=dev)
     n_idx = idx.numel()
-    # staged: few CTAs, each pays for its copy of the table
-    n_ctas = min(-(-n_idx // 256), N_SMS if staged else 8 * N_SMS)
+    # the global form's grid; the staged form's is as many CTAs as fit the
+    # card with the table in shared memory (csrc/probe_gather.cu)
+    n_ctas = min(-(-n_idx // 256), 8 * N_SMS)
     lib = nvcc.load("probe_gather")
     launch("probe_gather", dev, lambda stream: lib.probe_gather_launch(
         table.data_ptr(), idx.data_ptr(), out.data_ptr(), s, cols, n_idx,

@@ -12,8 +12,9 @@ first launch (the CUDA module load), and the steady launch. `run_ladder`
 then times the TPU file's ladder on the card: sweep_inputs alone, the
 sweep kernel alone on its saved inputs (no new kernel: it is
 csrc/sweep.cu, at 131,072 primary rays 1,024 tiles of one CTA and about
-one span each), one closest cast, one any-hit cast, one trace_radiance
-batch and one render_pass.
+one span each) beside its plain version on the same inputs and the bound
+of the spans its walk visits, one closest cast, one any-hit cast, one
+trace_radiance batch and one render_pass.
 """
 
 from __future__ import annotations
@@ -34,7 +35,7 @@ from ..utils import nvcc
 from . import card_perf  # noqa: F401, registers its kernels
 from . import gather  # noqa: F401, registers its kernel
 from . import launch_overhead  # noqa: F401, registers its kernel
-from . import cuda_ms, device_line
+from . import cuda_ms, device_line, span_bound
 
 LADDER_RAYS = 131072   # the TPU file's tile of rays
 
@@ -123,12 +124,24 @@ def run_ladder(scene, camera, config, rays=LADDER_RAYS, repeats=2):
                                        torch.zeros_like(ones))
         kargs, _ = prep()
         state = init_render_state(config, device)
+        plain_ms = cuda_ms(lambda: sw.sweep_plain(*kargs), repeats=2)
+        # the least time of the kernel's work: the spans its walk visits
+        visited = sw.sweep_plain.visited
+        spans = kargs[1]
+        walked = torch.arange(spans.shape[1], device=device)[None, :] \
+            < visited[:, None]
+        bound_ms = span_bound(
+            int(visited.sum()), int(torch.unique(spans[walked]).numel()),
+            kargs[5].shape[2] // 4, n,
+            index_bytes=kargs[0].numel() * 4 + 2 * int(visited.sum()) * 4)[0]
         ladder = {
             "host prep only (sweep_inputs)":
                 _host_s(prep, device, repeats) * 1e3,
             "sweep kernel only (saved inputs)": cuda_ms(
                 lambda: sw.sweep(*kargs[:4], kargs[4].clone(), kargs[5]),
                 repeats=5),
+            "plain sweep only (saved inputs)": plain_ms,
+            "bound of the sweep kernel's work": bound_ms,
             "swept closest (1 cast)": _host_s(
                 lambda: sw.closest_hit_swept(scene, origin, direction),
                 device, repeats) * 1e3,

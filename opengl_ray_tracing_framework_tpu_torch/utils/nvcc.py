@@ -60,12 +60,14 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"{name}_{digest[:16]}.so"
 
 
-def compile_source(name: str, out: Path) -> tuple[float, str]:
-    """nvcc csrc/<name>.cu -> the shared library `out`, whatever exists
-    there or in the cache. Returns (seconds, compiler log)."""
+def compile_source(name: str, out: Path, csrc: Path = CSRC
+                   ) -> tuple[float, str]:
+    """nvcc <csrc>/<name>.cu (csrc/ of the package unless another copy of
+    it is named) -> the shared library `out`, whatever exists there or in
+    the cache. Returns (seconds, compiler log)."""
     t0 = time.perf_counter()
     proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", str(out), str(CSRC / f"{name}.cu")],
+        [_nvcc(), *NVCC_FLAGS, "-o", str(out), str(Path(csrc) / f"{name}.cu")],
         capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed on {name}.cu:\n{proc.stderr}")

@@ -1,0 +1,157 @@
+"""PyTorch port, the cluster kernels on the card at every width of cluster
+block: K1 (csrc/sweep.cu) and K2 (csrc/cluster_intersect.cu) against their
+plain versions (sweep_plain, cluster_intersect_plain) on the same inputs,
+for blocks of T = 256 (one bulk copy of the whole block), 512, 1,024 and
+4,096 (chunks of a CTA's columns by tensor-map copies) and 302 (no
+multiple of 4: hand-copied chunks), and the refusal of a block wider than
+the kernels' 4,096.
+
+Every test here is marked `cuda` and skips without a card: the kernels
+are CUDA C++ and have no interpreted mode. This file imports nothing of
+the JAX package, so it also runs where JAX is not installed, without the
+repository's conftest (which imports jax):
+
+    python -m pytest --noconftest -m cuda tests/test_torch_card.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from opengl_ray_tracing_framework_tpu_torch.models.scene import (
+    build_test_scene)
+from opengl_ray_tracing_framework_tpu_torch.ops import (
+    cluster_intersect as tci)
+from opengl_ray_tracing_framework_tpu_torch.ops import sweep as tsweep
+
+WIDTHS = [256, 512, 1024, 302, 4096]
+
+
+def _sizes(t_blk):
+    """(rays, any-hit share) of the K1 cases and (tiles, rays per tile) of
+    the K2 cases: one tile (8 CTAs on it), 64 and 512 tiles (8 and 2), and
+    1,024 tiles (1 CTA, whose columns of a 512- or 1,024-wide block are 2
+    or 4 chunks); 4,096-wide blocks stop at 64 tiles, where the plain
+    version's (tiles, 128, 4T) products still fit the card."""
+    if t_blk > 1024:
+        return ((128, 0.0), (8192, 0.3)), ((1, 128), (8, 1024))
+    return (((128, 0.0), (8192, 0.0), (65536, 0.3), (131072, 0.3)),
+            ((1, 128), (64, 1024), (1024, 128)))
+
+
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the cluster kernels are CUDA C++ "
+                    "and have no interpreted mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _rays(n, seed, device):
+    """Rays from around the scene towards the sphere at (0, 0, 3), so most
+    of them hit and their tiles overlap several clusters."""
+    rng = np.random.default_rng(seed)
+    o = rng.normal(0, 2.0, (n, 3)).astype(np.float32)
+    o[:, 2] -= 1.0
+    d = np.array([0.0, 0.0, 3.0], np.float32) - o \
+        + rng.normal(0, 0.6, o.shape).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    return torch.tensor(o, device=device), torch.tensor(d, device=device)
+
+
+def _scene(t_blk, device):
+    # subdiv 5 (20,482 triangles) gives 4,096-triangle blocks more than one
+    # cluster; subdiv 3 (1,282) is enough for the narrower ones
+    host_scene, _ = build_test_scene(5 if t_blk > 1024 else 3, device="cpu")
+    scene = host_scene.build(cluster_size=t_blk, device=device)
+    assert scene.cl_trifeat.shape[2] == 4 * t_blk
+    return scene
+
+
+def _assert_same_records(got, want, label, min_hits=0.3):
+    """Kernel and plain version give the same hit or miss, slot (so the
+    same triangle) and inside flag on every ray, and the same t to 1e-6
+    relative: the kernel sums each of A, TN, U, V as one chain of fmaf,
+    while the plain version's batched product goes through cuBLAS, whose
+    order of summation depends on the shape (single-tile products at
+    4T = 1,024 and 1,208 round t 1 ulp apart; the others agree bit for
+    bit)."""
+    torch.cuda.synchronize()
+    g, w = got[:, :3], want[:, :3]
+    diff = (g[:, 1:] != w[:, 1:]).any(dim=1) | ~torch.isclose(
+        g[:, 0], w[:, 0], rtol=1e-6, atol=0.0)
+    if diff.any():
+        g, w = g[diff], w[diff]
+        pytest.fail(
+            f"{label}: {int(diff.sum())} records differ: hit/miss "
+            f"{int(((g[:, 1] >= 0) != (w[:, 1] >= 0)).sum())}, slot "
+            f"{int((g[:, 1] != w[:, 1]).sum())}, inside "
+            f"{int((g[:, 2] != w[:, 2]).sum())}, max |dt| "
+            f"{(g[:, 0] - w[:, 0]).abs().max().item():.3g}; first rows "
+            f"kernel {g[:4].tolist()} plain {w[:4].tolist()}")
+    assert (want[:, 1] >= 0).float().mean() > min_hits
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t_blk", WIDTHS)
+def test_sweep_kernel_equals_plain_at_every_width(t_blk):
+    dev = _card()
+    scene = _scene(t_blk, dev)
+    for n_rays, anyhit_share in _sizes(t_blk)[0]:
+        o, d = _rays(n_rays, t_blk + n_rays, dev)
+        mask = torch.ones(n_rays, dtype=torch.bool, device=dev)
+        anyhit = torch.rand(n_rays, device=dev) < anyhit_share
+        kargs, _ = tsweep.sweep_inputs(scene, o, d, mask, anyhit)
+        launches, calls = tsweep.sweep.launches, tsweep.sweep_plain.calls
+        got = tsweep.sweep(*kargs[:4], kargs[4].clone(), kargs[5])
+        assert tsweep.sweep.launches == launches + 1
+        assert tsweep.sweep_plain.calls == calls
+        _assert_same_records(got, tsweep.sweep_plain(*kargs),
+                             f"T {t_blk}, {n_rays} rays")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t_blk", WIDTHS)
+def test_cluster_intersect_kernel_equals_plain_at_every_width(t_blk):
+    dev = _card()
+    scene = _scene(t_blk, dev)
+    c = scene.cl_trifeat.shape[0]
+    rng = np.random.default_rng(t_blk)
+    for g, tile in _sizes(t_blk)[1]:
+        o, d = _rays(g * tile, t_blk + g, dev)
+        rayfeat = tsweep.ray_features(o, d)
+        k = 8
+        spans = torch.tensor(rng.integers(0, c + 1, (g, k)), dtype=torch.int32,
+                             device=dev)   # id c is skipped
+        nspan = torch.tensor(rng.integers(1, k + 1, g), dtype=torch.int32,
+                             device=dev)
+        if g > 1:
+            nspan[g // 2] = 0   # a tile without spans keeps its records
+        best = tci.init_best(g * tile, dev)
+        launches = tci.cluster_intersect.launches
+        got = tci.cluster_intersect(rayfeat, best.clone(), spans, nspan,
+                                    scene.cl_trifeat)
+        assert tci.cluster_intersect.launches == launches + 1
+        want = tci.cluster_intersect_plain(rayfeat, best, spans, nspan,
+                                           scene.cl_trifeat)
+        _assert_same_records(got, want, f"T {t_blk}, {g} tiles of {tile}",
+                             min_hits=0.0)
+
+
+@pytest.mark.cuda
+def test_blocks_beyond_the_limit_are_refused():
+    dev = _card()
+    t_blk = tsweep.MAX_BLOCK_TRIS + 4
+    trifeat = torch.zeros((1, 16, 4 * t_blk), device=dev)
+    rayfeat = torch.zeros((128, 16), device=dev)
+    best = tci.init_best(128, dev)
+    one = torch.ones(1, dtype=torch.int32, device=dev)
+    spans = torch.zeros((1, 1), dtype=torch.int32, device=dev)
+    calls = tsweep.sweep_plain.calls, tci.cluster_intersect_plain.calls
+    with pytest.raises(ValueError, match="4096"):
+        tsweep.sweep(one, spans, torch.zeros((1, 1), device=dev), rayfeat,
+                     best, trifeat)
+    with pytest.raises(ValueError, match="4096"):
+        tci.cluster_intersect(rayfeat, best, spans, one, trifeat)
+    assert (tsweep.sweep_plain.calls,
+            tci.cluster_intersect_plain.calls) == calls

@@ -45,7 +45,7 @@ def assert_same_scene(port, ref):
         assert np.array_equal(a, ref["materials"][f]), f
 
 
-@pytest.mark.parametrize("cluster_size", [256, 8])
+@pytest.mark.parametrize("cluster_size", [256, 8, 512, 1024, 302])
 def test_scene_build_matches_jax(cluster_size):
     jsc, _ = jscene.build_test_scene(n_sphere_subdiv=2)
     tsc, _ = tscene.build_test_scene(n_sphere_subdiv=2, device="cpu")
@@ -205,3 +205,54 @@ def test_replace_material_and_n_nodes_match_jax():
                                       np.asarray(getattr(jnew.mat, f)), f)
         assert torch.equal(old, b), f
     assert int(tnew.mat.medium_type[1]) == 1   # MEDIUM_ABSORB
+
+
+def test_scene_objects_match_jax():
+    """Scene.add_object returns a SceneObject(name, material_slot,
+    n_triangles) and keeps it in Scene.objects, default names included;
+    the test scene's and a hand-built scene's objects equal those of the
+    JAX Scene."""
+    from opengl_ray_tracing_framework_tpu.models import mesh as jmesh
+    from opengl_ray_tracing_framework_tpu.models.material import (
+        preset_materials as jpresets)
+    from opengl_ray_tracing_framework_tpu_torch.models import mesh as tmesh
+    from opengl_ray_tracing_framework_tpu_torch.models.material import (
+        preset_materials as tpresets)
+    jsc, _ = jscene.build_test_scene(n_sphere_subdiv=1)
+    tsc, _ = tscene.build_test_scene(n_sphere_subdiv=1, device="cpu")
+    assert [tuple(o) for o in tsc.objects] == [tuple(o) for o in jsc.objects]
+    assert [o.name for o in tsc.objects] == ["floor", "sphere"]
+
+    def build(scene_cls, mesh, presets):
+        scene = scene_cls()
+        objs = [scene.add_object(mesh.make_quad(), presets["white"]),
+                scene.add_object(mesh.make_icosphere(1), presets["golden"],
+                                 name="ball"),
+                scene.add_object(mesh.make_icosphere(0), 1)]
+        return scene, objs
+
+    jb, jobjs = build(jscene.Scene, jmesh, jpresets())
+    tb, tobjs = build(tscene.Scene, tmesh, tpresets())
+    assert isinstance(tobjs[0], tscene.SceneObject)
+    assert tobjs == tb.objects
+    assert [tuple(o) for o in tobjs] == [tuple(o) for o in jobjs]
+    assert [o.name for o in tobjs] == ["object0", "ball", "object2"]
+    assert tobjs[2].material_slot == 1 and tobjs[2].n_triangles == 20
+
+
+def test_triangle_gathers_match_jax():
+    """SceneData.triangle_vertices / triangle_normals gather (p1, p2, p3)
+    and (n1, n2, n3) of triangle ids clamped into the scene, as the JAX
+    SceneData does (misses are -1, ids past the end clamp to the last)."""
+    import jax.numpy as jnp
+    _, jdata = jscene.build_test_scene(n_sphere_subdiv=2)
+    _, tdata = tscene.build_test_scene(n_sphere_subdiv=2, device="cpu")
+    n = tdata.n_triangles
+    ids = np.array([-1, 0, 3, n - 1, n, n + 7, -5], np.int32)
+    for name in ("triangle_vertices", "triangle_normals"):
+        got = getattr(tdata, name)(torch.tensor(ids))
+        want = getattr(jdata, name)(jnp.asarray(ids))
+        assert len(got) == len(want) == 3
+        for a, b in zip(got, want):
+            assert a.shape == (len(ids), 3)
+            np.testing.assert_array_equal(a.numpy(), np.asarray(b))

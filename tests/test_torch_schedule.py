@@ -35,8 +35,8 @@ from opengl_ray_tracing_framework_tpu_torch.ops import sweep as tsweep
 
 from test_torch_host import jax_scene_arrays
 from test_torch_render import assert_images_agree, scenes  # noqa: F401
-from test_torch_sweep import (
-    INF, assert_hits_agree, inside_rays, random_rays)
+from test_torch_sweep import (  # noqa: F401
+    INF, assert_hits_agree, inside_rays, random_rays, wide_block_scenes)
 
 T = torch.as_tensor
 
@@ -187,6 +187,18 @@ def test_scheduled_many_clusters(many_cluster_scenes):
     port, ref, oracle = three_way(jdata, tdata, o, d)
     assert_hits_agree(port, oracle)
     assert_hits_agree(port, ref)
+
+
+def test_scheduled_wide_blocks_match_jax(wide_block_scenes):  # noqa: F811
+    """Cluster blocks of 512, 1,024 and 302 triangles: the port's vote
+    tracer finds the JAX tracer's hits (and the oracle's), triangle for
+    triangle."""
+    jdata, tdata = wide_block_scenes
+    o, d = random_rays(np.random.default_rng(29), 2048)
+    port, ref, oracle = three_way(jdata, tdata, o, d)
+    assert (port.tri.numpy() >= 0).sum() > 100
+    assert_hits_agree(port, ref, tri_agree=1.0)
+    assert_hits_agree(port, oracle, tri_agree=1.0)
 
 
 def test_scheduled_inside_scene_rays(small_scenes):

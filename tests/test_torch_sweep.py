@@ -50,6 +50,17 @@ def many_cluster_scenes():
     return _pair(jdata)
 
 
+@pytest.fixture(scope="module", params=[512, 1024, 302])
+def wide_block_scenes(request):
+    """The subdiv-3 test scene in cluster blocks wider than 256 triangles,
+    as the reference's Scene.build(cluster_size=...) takes them (302: a
+    width that is no multiple of 4)."""
+    jsc, _ = jax_build_test_scene(n_sphere_subdiv=3)
+    jdata = jsc.build(cluster_size=request.param)
+    assert jdata.cl_trifeat.shape[2] == 4 * request.param
+    return _pair(jdata)
+
+
 def random_rays(rng, n, spread=3.0):
     origin = np.asarray(rng.normal(0, spread, (n, 3)), np.float32)
     origin[:, 2] -= 1.0
@@ -124,6 +135,18 @@ def test_swept_many_clusters(many_cluster_scenes):
     port, ref, oracle = three_way(jdata, tdata, o, d)
     assert_hits_agree(port, oracle)
     assert_hits_agree(port, ref)
+
+
+def test_swept_wide_blocks_match_jax(wide_block_scenes):
+    """Cluster blocks of 512, 1,024 and 302 triangles: the port's sweep
+    finds the JAX sweep's hits (and the oracle's), triangle for
+    triangle."""
+    jdata, tdata = wide_block_scenes
+    o, d = random_rays(np.random.default_rng(29), 2048)
+    port, ref, oracle = three_way(jdata, tdata, o, d)
+    assert (port.tri.numpy() >= 0).sum() > 100
+    assert_hits_agree(port, ref, tri_agree=1.0)
+    assert_hits_agree(port, oracle, tri_agree=1.0)
 
 
 def test_swept_any_hit(many_cluster_scenes):

@@ -160,3 +160,32 @@ def test_pair_off_the_sweep_backend_is_two_casts(scenes, name):
                                   s_any.tri.numpy()[a] >= 0)
     pick = lambda h: tuple(x.numpy()[c] for x in h)
     assert_hits_agree(pick(h_cls), pick(s_cls))
+
+
+@pytest.fixture(scope="module")
+def subdiv3_scenes():
+    _, jdata = jax_build_test_scene(n_sphere_subdiv=3)
+    return jdata, scene_from_numpy(jax_scene_arrays(jdata), device="cpu")
+
+
+@pytest.mark.parametrize("stack_depth", [2, 3, 4, 64])
+def test_bvh_stack_overflow_matches_jax(subdiv3_scenes, stack_depth):
+    """A stack too shallow for the walk: pushes beyond it are dropped and
+    the pops above it visit the dummy node 0 in both packages, so the port
+    finds JAX's hits at every depth (re-reading the stack's last column,
+    it once lost 776, 522 and 172 of them at depths 2, 3 and 4)."""
+    jdata, tdata = subdiv3_scenes
+    rng = np.random.default_rng(0)
+    o = (rng.normal(0, 0.2, (2048, 3))
+         + np.array([0.0, 1.0, 4.0])).astype(np.float32)
+    d = rng.normal(size=(2048, 3)).astype(np.float32)
+    d[:, 2] -= 3.0
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    port = ttrav.bvh_closest_hit(tdata, T(o), T(d), stack_depth=stack_depth)
+    ref = jtrav.bvh_closest_hit(jdata, jnp.asarray(o), jnp.asarray(d),
+                                stack_depth=stack_depth)
+    assert (np.asarray(ref.tri) >= 0).sum() > 100
+    np.testing.assert_array_equal(port.tri.numpy(), np.asarray(ref.tri))
+    np.testing.assert_array_equal(port.inside.numpy(),
+                                  np.asarray(ref.inside))
+    np.testing.assert_allclose(port.t.numpy(), np.asarray(ref.t), rtol=1e-6)
