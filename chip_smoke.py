@@ -56,23 +56,31 @@ when torch sees no CUDA device, and when anything below fails:
 10. the probe kernels against their plain versions at the probes' own
     shapes (the copy probe at tile 128 with and without span rows, the
     gather at a 4,096-entry table from global and from shared memory,
-    each beside its one-call library counterpart), by exact equality
-    (they copy, add and gather; the streamed sums are of integer-valued
-    floats, exact in any order; with random floats
-    they are held to rtol 1e-5), each with its kernel, plain and library
-    time and its bytes bound. Kernel and library times are device times
-    with the inputs coming from HBM (launches of one CUDA graph rotate
-    over enough copies of the inputs to evict each from L2 before its
-    turn comes again), which is what the bound assumes: a time below the
-    bound fails the run. The time with the inputs left in L2 is printed
-    beside it and goes nowhere else;
+    each beside its one-call library counterpart; the 8 chained lookups
+    (probe_chained) on (S, 128) tables whose columns differ, S = 512,
+    1,024, 2,048, 3,000 and last the TPU's 4,096, with one torch.gather
+    step timed as context: no PyTorch call chains them; the shared-memory
+    probe at 512 B, its launch floor, and at 227 KB; the block sums for
+    132 rows of starts, with the L2 rate their re-reads reach, and last
+    for the TPU's own single row, each beside embedding_bag), by exact
+    equality (they copy, add, gather and chain integer lookups; the block
+    sums of integer-valued floats are exact in any order; with random
+    floats they are held to rtol 1e-5), each with its kernel, plain and
+    library time and its bytes bound (the block sums' bound counts each
+    distinct table row that the starts cover once). Kernel and library
+    times are device times with the inputs coming from HBM (launches of
+    one CUDA graph rotate over enough copies of the inputs to evict each
+    from L2 before its turn comes again), which is what the bound
+    assumes: a time below the bound fails the run. The time with the
+    inputs left in L2 is printed beside it and goes nowhere else;
 11. the probes as a user runs them (probes/launch_overhead.py, gather.py,
     card_perf.py, kernel_build.py): microseconds per CTA, lookups per
-    second from global and shared memory, the shared-memory ceiling (the
-    228 KB request must be refused and nothing below it), GB/s of the span
-    copy per CTA and in aggregate, torch's sorts and gathers, cold nvcc
-    builds into a temporary directory with first and steady launches, and
-    the ladder host prep / kernel alone / casts / batch / pass;
+    second from global and shared memory, the chained lookups at every S,
+    the shared-memory ceiling (the 228 KB request must be refused and
+    nothing below it), the block sums for one and 132 rows of starts,
+    torch's sorts and gathers, cold nvcc builds into a temporary directory
+    with first and steady launches, and the ladder host prep / kernel
+    alone / casts / batch / pass;
 12. the gradient path: material_grad at full width (1024x512, 8 bounces,
     65,536 rays per batch) against a target rendered with another sphere
     material, one warm-up and one timed step fenced by a host copy of the
@@ -118,9 +126,11 @@ this run's inputs need: the larger of its FP32 operations over the card's
 CUDA-core peak and its bytes (each input read once, each output written
 once) over the HBM rate (NVIDIA's H100 SXM data sheet: 67 TFLOP/s FP32,
 3.35 TB/s). Neither K1 nor K2 has one PyTorch call that computes the same
-function, so their library_ms is null; the probe kernels have one each
-(an add of a slice, index_select, embedding_bag), timed here and used
-nowhere in the port.
+function, so their library_ms is null, as is the chained lookups'; the
+other probe kernels have one each (an add of a slice, index_select,
+embedding_bag), timed here and used nowhere in the port. The kernels line
+has one entry per kernel: csrc/probe_gather.cu holds two, the gather
+(probe_gather) and the chained lookups (probe_chained).
 
 It prints one line of numbers per phase, then a JSON line describing the
 kernels, then {"ok": true, "device": {...}} as the last line. --profile
@@ -328,15 +338,18 @@ def probe_phases(scene, camera, config):
     entries = {}
 
     def compare(name, label, kernel, plain, library, inputs, nbytes,
-                replaces, rtol=0.0, library_inputs=None,
-                library_is_same=True):
+                replaces, rtol=0.0, library_inputs=None, context=None,
+                source=None):
         """Hold kernel(*inputs) against plain(*inputs) (exactly, or to
         rtol), time both and the one-call library(*library_inputs) (None:
         there is none), and record the case as the kernel's entry: the
         last case of a kernel is the one the kernels line reports. The
         kernel's and the library's times are device times with the inputs
         coming from HBM (probes.hbm_ms), as the bound assumes; the time
-        with the inputs left in L2 is printed on this line only."""
+        with the inputs left in L2 is printed on this line only, as is
+        the time of `context` (a call that computes part of the function,
+        on library_inputs; not the library's). `source`: the kernel's
+        file under csrc/ when it is not the name's."""
         if library_inputs is None:
             library_inputs = inputs
         got, want = kernel(*inputs), plain(*inputs)
@@ -347,7 +360,7 @@ def probe_phases(scene, camera, config):
         if not ok:
             fail(f"{name} {label}: kernel and plain version differ "
                  f"(max |d| {err:.3g})")
-        if library is not None and library_is_same and not torch.allclose(
+        if library is not None and not torch.allclose(
                 library(*library_inputs).reshape(want.shape).float(), want,
                 rtol=1e-5):
             fail(f"{name} {label}: the library call computes another "
@@ -363,6 +376,9 @@ def probe_phases(scene, camera, config):
               f"{plain_ms * 1e3:.2f} us, library "
               + (f"{library_ms * 1e3:.2f} us" if library is not None
                  else "none")
+              + (f" (context, {context[0]}: "
+                 f"{probes.hbm_ms(context[1], library_inputs) * 1e3:.2f} "
+                 "us)" if context is not None else "")
               + f", bound {bound_ms * 1e3:.4f} us by bytes ({nbytes} B)")
         if ms < bound_ms:
             fail(f"{name} {label}: {ms * 1e3:.2f} us is below the bound of "
@@ -371,7 +387,8 @@ def probe_phases(scene, camera, config):
         worst = max(err, entries.get(name, {}).get("max_abs_err", 0.0))
         entries[name] = {
             "name": name, "route": "cuda",
-            "source": f"{PORT}/csrc/{name}.cu", "replaces": replaces,
+            "source": f"{PORT}/csrc/{source or name}.cu",
+            "replaces": replaces,
             "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": "bytes",
             "library_ms": library_ms}
@@ -395,54 +412,78 @@ def probe_phases(scene, camera, config):
             "exp/grid_overhead.py:52")
 
     n_idx = 1 << 22
-    for label, n_table, shape, cols, kw in (
-            ("8 chained lookups, (4096, 128) table (library: one "
-             "torch.gather step)", 4096, (4096, 128), 128, dict(steps=8)),
-            ("4096-entry table staged in shared memory", 4096, (n_idx,),
-             None, dict(staged=True)),
-            ("4096-entry table from global memory", 4096, (n_idx,), None, {}),
-            ("2^26-entry table (256 MiB) from global memory", 1 << 26,
-             (n_idx,), None, {})):
-        table, idx = gather.make_inputs(dev, n_table, shape, cols=cols)
-        chained = "steps" in kw
+    for label, n_table, kw in (
+            ("4096-entry table staged in shared memory", 4096,
+             dict(staged=True)),
+            ("4096-entry table from global memory", 4096, {}),
+            ("2^26-entry table (256 MiB) from global memory", 1 << 26, {})):
+        table, idx = gather.make_inputs(dev, n_table, (n_idx,))
         compare(
             "probe_gather", f"{label}, {idx.numel()} indices",
             lambda t, i: gather.probe_gather(t, i, **kw),
             lambda t, i: gather.probe_gather_plain(t, i, **kw),
-            (lambda t, i: torch.gather(t, 0, i)) if chained
-            else (lambda t, i: torch.index_select(t, 0, i)),
+            lambda t, i: torch.index_select(t, 0, i),
             (table, idx), gather.gather_bytes(idx.numel()),
-            "exp/pallas_gather_probe.py:46",
-            library_inputs=(table, idx.long()) if chained else None,
-            library_is_same=not chained)
+            "exp/pallas_gather_probe.py:46")
 
-    compare(
-        "probe_smem", "227 KB of dynamic shared memory (reservation "
-        "included)",
-        lambda: card_perf.probe_smem(227 * 1024, dev),
-        lambda: card_perf.probe_smem_plain(227 * 1024, dev), None, (),
-        card_perf.LANES * 4, "exp/pallas_perf_probe.py:36")
+    # K4c-2 on tables whose columns differ; the TPU probe's S = 4,096
+    # last. No PyTorch call chains 8 lookups: one torch.gather step is
+    # printed as context
+    for s in sorted(gather.CHAINED_S, key=lambda s: s == 4096):
+        table, idx = gather.make_chained_inputs(dev, s)
+        compare(
+            "probe_chained", f"8 chained lookups, ({s}, 128) table whose "
+            f"columns differ, {idx.numel()} chains",
+            gather.probe_chained,
+            lambda t, i: gather.probe_gather_plain(t, i, steps=8), None,
+            (table, idx), gather.chained_bytes(table, idx),
+            "exp/pallas_perf_probe.py:66",
+            library_inputs=(table, idx.long()),
+            context=("one torch.gather step",
+                     lambda t, i: torch.gather(t, 0, i)),
+            source="probe_gather")
 
-    for integer, n_ctas in ((False, card_perf.N_SMS), (True, 1),
-                            (True, card_perf.N_SMS)):
-        table, starts = card_perf.make_stream_inputs(dev, n_ctas,
+    # K4c-1's launch floor (a few hundred bytes), then the 227 KB block
+    # the kernels line reports
+    for n_bytes in (512, 227 * 1024):
+        compare(
+            "probe_smem", f"{n_bytes} B of dynamic shared memory "
+            "(reservation included)",
+            lambda: card_perf.probe_smem(n_bytes, dev),
+            lambda: card_perf.probe_smem_plain(n_bytes, dev), None, (),
+            card_perf.LANES * 4, "exp/pallas_perf_probe.py:36")
+
+    # K4c-3 for one row of starts per SM, then the TPU's own single row,
+    # the case the kernels line reports
+    for integer, g in ((False, card_perf.N_SMS), (True, card_perf.N_SMS),
+                       (False, 1), (True, 1)):
+        table, starts = card_perf.make_stream_inputs(dev, g,
                                                      integer=integer)
         bag = starts.long()[..., None] + torch.arange(
             card_perf.BLOCK_ROWS, device=dev)
-        bag = bag.reshape(n_ctas, -1)
+        bag = bag.reshape(g, -1)
+        parts = card_perf.stream_plan(g, starts.shape[1])
         compare(
-            "probe_stream", f"{n_ctas} CTA(s) x 64 blocks of (128, 128), "
+            "probe_stream", f"{g} row(s) of 64 blocks of (128, 128) on "
+            f"{g * parts} CTAs, "
             f"{'integer-valued' if integer else 'random'} floats",
             card_perf.probe_stream, card_perf.probe_stream_plain,
             lambda t, b: F.embedding_bag(b, t, mode="sum"), (table, starts),
-            # the function's inputs once: the table, the starts, the sums
-            table.numel() * 4 + starts.numel() * 4 + n_ctas * 512,
+            card_perf.stream_bound_bytes(starts),
             "exp/pallas_perf_probe.py:129", rtol=0.0 if integer else 1e-5,
             library_inputs=(table, bag))
+        if g > 1:
+            ms = entries["probe_stream"]["ms"]
+            print(f"probe_stream: {g} rows re-read "
+                  f"{card_perf.stream_bytes(g)} B of blocks in "
+                  f"{ms * 1e3:.2f} us = "
+                  f"{card_perf.stream_bytes(g) / ms / 1e6:.1f} GB/s (the "
+                  "4 MiB table stays in L2: the L2 rate)")
 
     # 11. the probes as a user runs them; counts set to 0 just before
     wrappers = {"probe_copy": launch_overhead.probe_copy,
                 "probe_gather": gather.probe_gather,
+                "probe_chained": gather.probe_chained,
                 "probe_smem": card_perf.probe_smem,
                 "probe_stream": card_perf.probe_stream}
     for w in wrappers.values():
@@ -1488,8 +1529,8 @@ def main() -> int:
               "opengl_ray_tracing_framework_tpu/ops/intersect_pallas.py:66",
               k2_launches, k2, k2_main),
         *({**probe_entries[name], "launches": probe_counts[name]}
-          for name in ("probe_copy", "probe_gather", "probe_smem",
-                       "probe_stream")),
+          for name in ("probe_copy", "probe_gather", "probe_chained",
+                       "probe_smem", "probe_stream")),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

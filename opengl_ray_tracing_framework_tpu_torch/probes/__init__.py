@@ -25,6 +25,7 @@ PEAK_FP32_FLOPS = 67e12    # H100 SXM, FP32 outside the tensor cores
 FLOPS_PER_PAIR = 80        # 40 FMAs per ray x triangle (csrc/mt_span.cuh)
 L2_BYTES = 50 * 2**20      # H100 SXM L2 cache
 N_SMS = 132                # H100 SXM streaming multiprocessors
+SMEM_OPTIN_BYTES = 227 * 1024   # H100 shared memory a block may opt in to
 
 
 def span_bound(visits, clusters_read, t_blk, n_rays, index_bytes):

@@ -11,9 +11,9 @@ counterpart of exp/pallas_perf_probe.py.
    host preparation; no kernel of this repository, as the TPU file times
    XLA's sort),
 4. torch index gathers (un-permuting ray records; likewise),
-5. streaming cluster-sized blocks through shared memory
-   (csrc/probe_stream.cu; the TPU file's dynamic ref-slice stream), from
-   one CTA and from one CTA per SM.
+5. the column sums of 64 dynamically addressed (128, 128) blocks
+   (csrc/probe_stream.cu; the TPU file's dynamic ref-slice stream), for
+   the TPU's one row of block starts and for one row per SM.
 """
 
 from __future__ import annotations
@@ -139,7 +139,7 @@ def run_smem(device="cuda"):
     return largest, refused, limit
 
 
-# 5. streaming blocks through shared memory
+# 5. the column sums of dynamically addressed blocks
 
 
 def probe_stream_plain(table, starts):
@@ -158,19 +158,37 @@ probe_stream_plain.calls = 0
 
 
 def _declare_stream(lib):
-    lib.probe_stream_launch.argtypes = ([ctypes.c_void_p] * 3
-                                        + [ctypes.c_int] * 2
+    lib.probe_stream_launch.argtypes = ([ctypes.c_void_p] * 4
+                                        + [ctypes.c_int] * 3
                                         + [ctypes.c_void_p])
     lib.probe_stream_launch.restype = ctypes.c_int
     return lib
 
 
+STREAM_WARPS = 8         # warps of a CTA of csrc/probe_stream.cu
+STREAM_CTAS_PER_SM = 8   # as many as an SM holds: the most loads in flight
+STREAM_MIN_ROWS = 32     # table rows a CTA sums at least, where it can
+
+
+def stream_plan(g, n_blocks, n_sms=N_SMS):
+    """P, the CTAs that share each of the g rows of starts: enough to fill
+    every SM with STREAM_CTAS_PER_SM CTAs, each with STREAM_MIN_ROWS table
+    rows or more, but two CTAs per SM at least (the TPU's one row of starts
+    is 8,192 rows: P = 264), and one row per warp at most. CTA p of a row
+    sums the virtual rows [p V / P, (p + 1) V / P) of V = n_blocks * 128."""
+    rows = n_blocks * BLOCK_ROWS
+    cap = max(rows // STREAM_MIN_ROWS, -(-2 * n_sms // g))
+    return max(1, min(-(-STREAM_CTAS_PER_SM * n_sms // g), cap,
+                      rows // STREAM_WARPS))
+
+
 def probe_stream(table, starts):
-    """Per row of starts, the column sums of its blocks, streamed through
-    shared memory by one CTA (csrc/probe_stream.cu) on CUDA tensors,
+    """Per row of starts, the column sums of its blocks: a split reduction
+    over the whole card (csrc/probe_stream.cu: P = stream_plan CTAs per
+    row write partials, a second kernel sums them) on CUDA tensors,
     probe_stream_plain on CPU tensors. table (N, 128) f32; starts (G, B)
-    i32 first rows in [0, N - 128]. `probe_stream.launches` counts kernel
-    launches."""
+    i32 first rows in [0, N - 128]. `probe_stream.launches` counts
+    launches of the pair of kernels."""
     dev = table.device
     if dev.type == "cpu":
         return probe_stream_plain(table, starts)
@@ -181,10 +199,15 @@ def probe_stream(table, starts):
     check_tensor("probe_stream", "starts", starts, torch.int32,
                  tuple(starts.shape[:2]), dev)
     g, b = starts.shape
+    parts = stream_plan(g, b, torch.cuda.get_device_properties(dev)
+                        .multi_processor_count)
     out = torch.empty((g, LANES), dtype=torch.float32, device=dev)
+    partials = torch.empty((g, parts, LANES), dtype=torch.float32,
+                           device=dev)
     lib = nvcc.load("probe_stream")
     launch("probe_stream", dev, lambda s: lib.probe_stream_launch(
-        table.data_ptr(), starts.data_ptr(), out.data_ptr(), g, b, s))
+        table.data_ptr(), starts.data_ptr(), out.data_ptr(),
+        partials.data_ptr(), g, b, parts, s))
     probe_stream.launches += 1
     return out
 
@@ -192,10 +215,12 @@ def probe_stream(table, starts):
 probe_stream.launches = 0
 
 
-def make_stream_inputs(device, n_ctas, seed=0, integer=True):
-    """The TPU probe's shapes: an (8192, 128) table and 64 block starts per
-    CTA (multiples of 128 rows). integer=True draws integer-valued floats
-    in [0, 16) so every order of summation is exact."""
+def make_stream_inputs(device, n_ctas, seed=0, integer=True,
+                       n_blocks=N_STREAM_BLOCKS):
+    """The TPU probe's shapes: an (8192, 128) table and 64 block starts
+    (multiples of 128 rows) for each of n_ctas rows of starts. integer=True
+    draws integer-valued floats in [0, 16) so every order of summation is
+    exact."""
     gen = torch.Generator(device="cpu").manual_seed(seed)
     shape = (STREAM_TABLE_ROWS, LANES)
     if integer:
@@ -203,41 +228,51 @@ def make_stream_inputs(device, n_ctas, seed=0, integer=True):
     else:
         table = torch.rand(shape, generator=gen)
     starts = torch.randint(
-        0, STREAM_TABLE_ROWS // BLOCK_ROWS - 1, (n_ctas, N_STREAM_BLOCKS),
+        0, STREAM_TABLE_ROWS // BLOCK_ROWS - 1, (n_ctas, n_blocks),
         generator=gen, dtype=torch.int32) * BLOCK_ROWS
     return table.to(device), starts.to(device)
 
 
 def stream_bytes(n_ctas, n_blocks=N_STREAM_BLOCKS):
-    """Bytes one launch streams: every CTA reads its blocks and its starts
-    and writes one row."""
+    """Bytes one launch streams: every row of starts reads its blocks and
+    its starts and writes one row of sums."""
     return n_ctas * (n_blocks * (BLOCK_ROWS * LANES * 4 + 4) + LANES * 4)
 
 
+def stream_bound_bytes(starts):
+    """Bytes the function must move for these starts: each distinct table
+    row that a block covers once, the starts and the sums."""
+    rows = starts.long().reshape(-1, 1) + torch.arange(BLOCK_ROWS,
+                                                       device=starts.device)
+    return (rows.unique().numel() * LANES * 4 + starts.numel() * 4
+            + starts.shape[0] * LANES * 4)
+
+
 def run_stream(device="cuda"):
+    """The TPU probe's one row of 64 block starts, and one row per SM: the
+    sums equal to the plain version's, the device time with the table from
+    HBM and left in L2, and the rate of the blocks' bytes (with 132 rows,
+    553 MB of re-reads of a 4 MiB table: the L2 rate)."""
     device = torch.device(device)
+    n_sms = torch.cuda.get_device_properties(device).multi_processor_count
     rows = []
-    for n_ctas in (1, N_SMS):
-        table, starts = make_stream_inputs(device, n_ctas)
+    for g in (1, N_SMS):
+        table, starts = make_stream_inputs(device, g)
         got = probe_stream(table, starts)
         if not torch.equal(got, probe_stream_plain(table, starts)):
-            raise RuntimeError(f"card_perf: the streamed sums of {n_ctas} "
-                               "CTAs differ from the plain version")
-        # the 4 MiB table from HBM, and left in the L2 cache
+            raise RuntimeError(f"card_perf: the block sums of {g} row(s) "
+                               "of starts differ from the plain version")
         ms = hbm_ms(probe_stream, (table, starts))
         warm_ms = graph_ms(lambda: probe_stream(table, starts))
-        nbytes = stream_bytes(n_ctas)
-        rows.append(dict(ctas=n_ctas, ms=ms, warm_ms=warm_ms,
+        nbytes = stream_bytes(g)
+        ctas = g * stream_plan(g, N_STREAM_BLOCKS, n_sms)
+        rows.append(dict(rows=g, ctas=ctas, ms=ms, warm_ms=warm_ms,
                          gb_s=nbytes / ms / 1e6,
-                         gb_s_per_cta=nbytes / ms / 1e6 / n_ctas,
-                         warm_gb_s_per_cta=nbytes / warm_ms / 1e6 / n_ctas))
-        print(f"card_perf: stream 64 x (128, 128) blocks, {n_ctas} CTA(s), "
-              f"table from HBM: {ms * 1e3:.1f} us = "
-              f"{nbytes / ms / 1e6:.1f} GB/s in all, "
-              f"{nbytes / ms / 1e6 / n_ctas:.1f} GB/s per CTA | table left "
-              f"in L2: {warm_ms * 1e3:.1f} us = "
-              f"{nbytes / warm_ms / 1e6:.1f} GB/s in all, "
-              f"{nbytes / warm_ms / 1e6 / n_ctas:.1f} GB/s per CTA")
+                         warm_gb_s=nbytes / warm_ms / 1e6))
+        print(f"card_perf: sums of 64 x (128, 128) blocks, {g} row(s) of "
+              f"starts on {ctas} CTAs, table from HBM: {ms * 1e3:.2f} us = "
+              f"{nbytes / ms / 1e6:.1f} GB/s of blocks | table left in L2: "
+              f"{warm_ms * 1e3:.2f} us = {nbytes / warm_ms / 1e6:.1f} GB/s")
     return rows
 
 

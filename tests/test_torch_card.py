@@ -1,10 +1,13 @@
-"""PyTorch port, the cluster kernels on the card at every width of cluster
-block: K1 (csrc/sweep.cu) and K2 (csrc/cluster_intersect.cu) against their
-plain versions (sweep_plain, cluster_intersect_plain) on the same inputs,
-for blocks of T = 256 (one bulk copy of the whole block), 512, 1,024 and
-4,096 (chunks of a CTA's columns by tensor-map copies) and 302 (no
-multiple of 4: hand-copied chunks), and the refusal of a block wider than
-the kernels' 4,096.
+"""PyTorch port, kernels on the card against their plain versions on the
+same inputs: the cluster kernels at every width of cluster block, K1
+(csrc/sweep.cu) and K2 (csrc/cluster_intersect.cu) against sweep_plain and
+cluster_intersect_plain for blocks of T = 256 (one bulk copy of the whole
+block), 512, 1,024 and 4,096 (chunks of a CTA's columns by tensor-map
+copies) and 302 (no multiple of 4: hand-copied chunks), and the refusal of
+a block wider than the kernels' 4,096; the chained lookups (K4c-2,
+csrc/probe_gather.cu) on tables whose columns differ and the block sums
+(K4c-3, csrc/probe_stream.cu) for one and many rows of starts, and the
+refusal of a table column over the shared-memory limit.
 
 Every test here is marked `cuda` and skips without a card: the kernels
 are CUDA C++ and have no interpreted mode. This file imports nothing of
@@ -23,6 +26,7 @@ from opengl_ray_tracing_framework_tpu_torch.models.scene import (
 from opengl_ray_tracing_framework_tpu_torch.ops import (
     cluster_intersect as tci)
 from opengl_ray_tracing_framework_tpu_torch.ops import sweep as tsweep
+from opengl_ray_tracing_framework_tpu_torch.probes import card_perf, gather
 
 WIDTHS = [256, 512, 1024, 302, 4096]
 
@@ -155,3 +159,69 @@ def test_blocks_beyond_the_limit_are_refused():
         tci.cluster_intersect(rayfeat, best, spans, one, trifeat)
     assert (tsweep.sweep_plain.calls,
             tci.cluster_intersect_plain.calls) == calls
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,cols,integer", [
+    (512, 128, True), (3000, 128, True), (4096, 128, True),
+    (4096, 128, False), (2048, 6, True), (1000, 1, False)])
+def test_chained_kernel_equals_plain(s, cols, integer):
+    """K4c-2 on (S, C) tables whose columns differ (or random floats in
+    [0, S)): every chain equal, as the lookups and the modulo are exact.
+    C = 6 and C = 1 take the 4-byte staging copies; C = 1 is the 1-D
+    table with indices of any shape."""
+    dev = _card()
+    table, idx = gather.make_chained_inputs(dev, s, cols, seed=s + cols,
+                                            integer=integer)
+    if cols == 1:
+        table, idx = table[:, 0].contiguous(), idx.reshape(-1, 8)
+    launches = gather.probe_chained.launches
+    calls = gather.probe_gather_plain.calls
+    got = gather.probe_chained(table, idx)
+    assert gather.probe_chained.launches == launches + 1
+    assert gather.probe_gather_plain.calls == calls
+    torch.cuda.synchronize()
+    want = gather.probe_gather_plain(table, idx, steps=8)
+    assert got.shape == want.shape
+    assert torch.equal(got, want), \
+        f"{int((got != want).sum())} of {got.numel()} chains differ"
+
+
+@pytest.mark.cuda
+def test_chained_column_over_the_limit_is_refused():
+    dev = _card()
+    limit = card_perf.smem_optin_limit(dev)
+    s = limit // 4 + 1
+    table = torch.zeros((s, 4), device=dev)
+    idx = torch.zeros((8, 4), dtype=torch.int32, device=dev)
+    launches = gather.probe_chained.launches
+    with pytest.raises(ValueError, match=str(limit)):
+        gather.probe_chained(table, idx)
+    assert gather.probe_chained.launches == launches
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g,n_blocks", [(1, 64), (3, 64), (132, 64),
+                                         (10, 37)])
+@pytest.mark.parametrize("integer", [True, False])
+def test_stream_kernel_equals_plain(g, n_blocks, integer):
+    """K4c-3's split reduction: integer-valued tables exactly (any order of
+    sums is exact), random floats to rtol 1e-5 (another order of sums);
+    repeated launches agree bit for bit (the partials are summed in a
+    fixed order, and the row counters are left at zero)."""
+    dev = _card()
+    table, starts = card_perf.make_stream_inputs(
+        dev, g, seed=g, integer=integer, n_blocks=n_blocks)
+    launches = card_perf.probe_stream.launches
+    calls = card_perf.probe_stream_plain.calls
+    got = card_perf.probe_stream(table, starts)
+    again = card_perf.probe_stream(table, starts)
+    assert card_perf.probe_stream.launches == launches + 2
+    assert card_perf.probe_stream_plain.calls == calls
+    torch.cuda.synchronize()
+    want = card_perf.probe_stream_plain(table, starts)
+    assert torch.equal(got, again)
+    if integer:
+        assert torch.equal(got, want)
+    else:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=0.0)

@@ -56,6 +56,22 @@ def test_gather_matches_gather_probe():
     assert gather.probe_gather.launches == launches
 
 
+def _split_range(n, parts, i):
+    """Part i of `parts` consecutive ranges of range(n), as the probe
+    kernels cut their work: [i n / parts, (i + 1) n / parts)."""
+    return i * n // parts, (i + 1) * n // parts
+
+
+def _perf_probe_chains(tab, idx, s):
+    """exp/pallas_perf_probe.py:57-64 restated: 8 dependent lookups
+    acc = (int(tab[acc, j]) + 1) % S along axis 0, as float32."""
+    acc = idx.copy()
+    for _ in range(8):
+        g = np.take_along_axis(tab, acc, axis=0)
+        acc = (g.astype(np.int32) + 1) % s
+    return acc.astype(np.float32)
+
+
 @pytest.mark.parametrize("s", [512, 4096])
 def test_chained_gather_matches_perf_probe(s):
     """exp/pallas_perf_probe.py:51-64: a lane-replicated (S, 128) table,
@@ -64,15 +80,69 @@ def test_chained_gather_matches_perf_probe(s):
     table, idx = gather.make_inputs("cpu", s, (s, 128), cols=128, seed=0)
     tab = np.tile(np.arange(s, dtype=np.float32)[:, None], (1, 128))
     np.testing.assert_array_equal(table.numpy(), tab)
-    acc = idx.numpy().copy()
-    for _ in range(8):
-        g = np.take_along_axis(tab, acc, axis=0)
-        acc = (g.astype(np.int32) + 1) % s
-    got = gather.probe_gather(table, idx, steps=8)
-    np.testing.assert_array_equal(got.numpy(), acc.astype(np.float32))
-    flat = gather.probe_gather(table[:, 0].contiguous(), idx.reshape(-1),
-                               steps=8)
+    got = gather.probe_chained(table, idx, steps=8)
+    np.testing.assert_array_equal(got.numpy(),
+                                  _perf_probe_chains(tab, idx.numpy(), s))
+    flat = gather.probe_chained(table[:, 0].contiguous(), idx.reshape(-1),
+                                steps=8)
     np.testing.assert_array_equal(flat.numpy().reshape(s, 128), got.numpy())
+
+
+@pytest.mark.parametrize("s,integer", [(512, True), (3000, True),
+                                       (3000, False)])
+def test_chained_gather_on_columns_that_differ(s, integer):
+    """The same function on a table whose columns differ, table[i, j] =
+    (7 i + 13 j) % S (or random floats in [0, S)), so that a lookup of
+    the wrong column gives another chain; S = 3,000 is no power of two."""
+    table, idx = gather.make_chained_inputs("cpu", s, seed=4,
+                                            integer=integer)
+    tab = table.numpy()
+    if integer:
+        i, j = np.meshgrid(np.arange(s), np.arange(128), indexing="ij")
+        np.testing.assert_array_equal(tab, (7 * i + 13 * j) % s)
+    assert (tab[:, 0] != tab[:, 1]).all() and tab.min() >= 0 \
+        and tab.max() < s
+    want = _perf_probe_chains(tab, idx.numpy(), s)
+    launches = gather.probe_chained.launches
+    got = gather.probe_chained(table, idx, steps=8)
+    assert gather.probe_chained.launches == launches
+    np.testing.assert_array_equal(got.numpy(), want)
+    # the same chains on the lane-replicated table of column 0 differ
+    rep = gather.probe_chained(table[:, :1].repeat(1, 128).contiguous(), idx)
+    assert not np.array_equal(rep.numpy(), want)
+
+
+@pytest.mark.parametrize("s,cols,rows,n_sms", [
+    (4096, 128, 4096, 132), (512, 128, 512, 132), (3000, 128, 3000, 132),
+    (4096, 1, 524288, 132), (4096, 6, 100, 132), (58112, 128, 64, 132),
+    (300, 12, 37, 132), (2048, 128, 2048, 16)])
+def test_chained_plan_covers_every_chain_once(s, cols, rows, n_sms):
+    """chained_plan's column groups and row splits, cut as the kernel cuts
+    them, cover every (row, column) of idx once; each staged slice fits
+    the card's shared memory, c is a power of two up to one 32-byte
+    sector, and the grid does not exceed the SMs unless one column group
+    needs more (then one CTA a group)."""
+    limit = probes.SMEM_OPTIN_BYTES
+    c, splits = gather.chained_plan(s, cols, rows, n_sms, limit)
+    assert s * c * 4 <= limit and c & (c - 1) == 0
+    assert c <= gather.SECTOR_COLS and c <= cols and 1 <= splits <= rows
+    groups = -(-cols // c)
+    assert groups * splits <= max(n_sms, groups)
+    seen = np.zeros((rows, cols), np.int32)
+    for x in range(groups):
+        for y in range(splits):
+            r0, r1 = _split_range(rows, splits, y)
+            seen[r0:r1, x * c:min(x * c + c, cols)] += 1
+    np.testing.assert_array_equal(seen, 1)
+
+
+def test_chained_plan_refuses_a_column_over_the_limit():
+    limit = probes.SMEM_OPTIN_BYTES
+    assert gather.chained_plan(limit // 4, 128, 8)[0] == 1
+    with pytest.raises(ValueError, match=str(limit)):
+        gather.chained_plan(limit // 4 + 1, 128, 8)
+    with pytest.raises(ValueError, match="opt-in limit of 1024"):
+        gather.chained_plan(512, 4, 8, limit=1024)
 
 
 def test_smem_matches_a_scratch_row():
@@ -123,10 +193,55 @@ def test_stream_matches_dynslice_stream(integer):
     np.testing.assert_allclose(got, ref, rtol=1e-5)
 
 
+@pytest.mark.parametrize("g,n_blocks", [(1, 64), (3, 64), (1, 37),
+                                         (10, 37)])
+def test_stream_rows_of_starts(g, n_blocks):
+    """The TPU's one row of starts (G = 1), a few rows, and a block count
+    that the kernel's split does not divide (G = 10: 37 x 128 rows over
+    106 CTAs each),
+    against the TPU probe's loop restated, with random floats."""
+    table, starts = card_perf.make_stream_inputs(
+        "cpu", g, seed=g + n_blocks, integer=False, n_blocks=n_blocks)
+    assert starts.shape == (g, n_blocks)
+    if (g, n_blocks) == (10, 37):   # 4,736 rows over 106 CTAs: ragged
+        assert (n_blocks * 128) % card_perf.stream_plan(g, n_blocks)
+    tab = table.numpy().astype(np.float64)
+    want = np.stack([sum(tab[int(s):int(s) + 128].sum(axis=0)
+                         for s in starts[r]) for r in range(g)])
+    got = card_perf.probe_stream(table, starts).numpy()
+    assert got.shape == (g, 128)
+    np.testing.assert_allclose(got, want, rtol=1e-5)
+
+
+@pytest.mark.parametrize("g,n_blocks,n_sms", [
+    (1, 64, 132), (3, 64, 132), (132, 64, 132), (1, 37, 132), (10, 37, 132),
+    (1, 1, 132), (1000, 64, 132), (2, 64, 16)])
+def test_stream_plan_covers_every_row_once(g, n_blocks, n_sms):
+    """stream_plan's P CTAs per row of starts, cut as the kernel cuts them,
+    sum each of the row's n_blocks * 128 virtual rows once; the grid puts
+    two CTAs on every SM where the rows allow one per warp, and no CTA has
+    fewer rows than warps."""
+    parts = card_perf.stream_plan(g, n_blocks, n_sms)
+    rows = n_blocks * 128
+    seen = np.zeros(rows, np.int32)
+    for p in range(parts):
+        v0, v1 = _split_range(rows, parts, p)
+        seen[v0:v1] += 1
+        assert v1 - v0 >= card_perf.STREAM_WARPS
+    np.testing.assert_array_equal(seen, 1)
+    assert g * parts >= 2 * n_sms or parts == rows // card_perf.STREAM_WARPS
+
+
 def test_stream_and_gather_bytes():
     assert card_perf.stream_bytes(1) == 64 * (128 * 128 * 4 + 4) + 512
     assert card_perf.stream_bytes(132) == 132 * card_perf.stream_bytes(1)
     assert gather.gather_bytes(1 << 22) == 12 << 22
+    # the bound counts each distinct table row once
+    starts = torch.tensor([[0, 128, 0], [64, 0, 1024]], dtype=torch.int32)
+    assert card_perf.stream_bound_bytes(starts) == \
+        (256 + 128) * 512 + 6 * 4 + 2 * 512   # 64..191 lies in 0..255
+    table, idx = gather.make_chained_inputs("cpu", 4096)
+    assert gather.chained_bytes(table, idx) == 4096 * 128 * 12
 
 
 def test_wrappers_check_their_tensors():
