@@ -9,7 +9,8 @@ when torch sees no CUDA device, and when anything below fails:
  1. device: the card's name and power limit (nvidia-smi);
  2. build: nvcc compiles every source of csrc/ (sweep.cu, the span-sweep
     kernel K1; cluster_intersect.cu, the cluster-intersect kernel K2; the
-    four probe kernels probe_copy, probe_gather, probe_smem, probe_stream),
+    four probe kernels probe_copy, probe_gather, probe_smem (with the
+    empty launch-floor kernel), probe_stream),
     all started together;
  3. K1 against its plain version on the card, at the main path's shapes:
     the 81,922-triangle procedural scene (loong-100k's scale), a
@@ -54,13 +55,18 @@ when torch sees no CUDA device, and when anything below fails:
     sweep image (kernel-free tracers, host loops).
 
 10. the probe kernels against their plain versions at the probes' own
-    shapes (the copy probe at tile 128 with and without span rows, the
-    gather at a 4,096-entry table from global and from shared memory,
+    shapes (the copy probe at tile 8,192, then at tile 128 with and
+    without span rows, then a finding line: the copy reading every
+    rayfeat row whole against half of it, in turns, an empty grid of the
+    same 1,024 CTAs, and one add of the bound's bytes in contiguous rows;
+    the gather at a 4,096-entry table from global and from shared memory,
     each beside its one-call library counterpart; the 8 chained lookups
     (probe_chained) on (S, 128) tables whose columns differ, S = 512,
     1,024, 2,048, 3,000 and last the TPU's 4,096, with one torch.gather
-    step timed as context: no PyTorch call chains them; the shared-memory
-    probe at 512 B, its launch floor, and at 227 KB; the block sums for
+    step timed as context: no PyTorch call chains them; the card's launch
+    floor, an empty one-CTA kernel, on a line of its own, then the
+    shared-memory probe at 512 B and at 227 KB, each bounded by that floor
+    (the larger of it and the bytes bound, "launch"); the block sums for
     132 rows of starts, with the L2 rate their re-reads reach, and last
     for the TPU's own single row, each beside embedding_bag), by exact
     equality (they copy, add, gather and chain integer lookups; the block
@@ -125,7 +131,10 @@ Each kernel's bound is the least time the card could take for the work
 this run's inputs need: the larger of its FP32 operations over the card's
 CUDA-core peak and its bytes (each input read once, each output written
 once) over the HBM rate (NVIDIA's H100 SXM data sheet: 67 TFLOP/s FP32,
-3.35 TB/s). Neither K1 nor K2 has one PyTorch call that computes the same
+3.35 TB/s); the shared-memory probe's work is one launch of one CTA, so
+its bound is the card's launch floor measured in the same run (an empty
+one-CTA kernel), "launch", where that is the larger. Neither K1 nor K2 has
+one PyTorch call that computes the same
 function, so their library_ms is null, as is the chained lookups'; the
 other probe kernels have one each (an add of a slice, index_select,
 embedding_bag), timed here and used nowhere in the port. The kernels line
@@ -339,7 +348,7 @@ def probe_phases(scene, camera, config):
 
     def compare(name, label, kernel, plain, library, inputs, nbytes,
                 replaces, rtol=0.0, library_inputs=None, context=None,
-                source=None):
+                source=None, floor_ms=None):
         """Hold kernel(*inputs) against plain(*inputs) (exactly, or to
         rtol), time both and the one-call library(*library_inputs) (None:
         there is none), and record the case as the kernel's entry: the
@@ -349,7 +358,11 @@ def probe_phases(scene, camera, config):
         with the inputs left in L2 is printed on this line only, as is
         the time of `context` (a call that computes part of the function,
         on library_inputs; not the library's). `source`: the kernel's
-        file under csrc/ when it is not the name's."""
+        file under csrc/ when it is not the name's. `floor_ms`: the
+        card's launch floor, measured in this run, for a kernel whose work
+        is one launch: its bound is then the larger of the bytes bound and
+        the floor (bound_by "launch"); a time below the bytes bound still
+        fails."""
         if library_inputs is None:
             library_inputs = inputs
         got, want = kernel(*inputs), plain(*inputs)
@@ -384,14 +397,20 @@ def probe_phases(scene, camera, config):
             fail(f"{name} {label}: {ms * 1e3:.2f} us is below the bound of "
                  f"{bound_ms * 1e3:.2f} us: the inputs did not come from "
                  "HBM")
+        bound_by = "bytes"
+        if floor_ms is not None and floor_ms > bound_ms:
+            bound_ms, bound_by = floor_ms, "launch"
+            print(f"{name} {label}: bound {bound_ms * 1e3:.3f} us by the "
+                  f"launch floor = {bound_ms / ms:.1%} of it")
         worst = max(err, entries.get(name, {}).get("max_abs_err", 0.0))
         entries[name] = {
             "name": name, "route": "cuda",
             "source": f"{PORT}/csrc/{source or name}.cu",
             "replaces": replaces,
             "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": "bytes",
+            "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": library_ms}
+        return ms
 
     # 10. each probe kernel against its plain version
     n_rows = launch_overhead.N_ROWS
@@ -410,6 +429,31 @@ def probe_phases(scene, camera, config):
             launch_overhead.copy_bytes(
                 n_rows, tile, launch_overhead.N_CLUSTERS if with_rows else 0),
             "exp/grid_overhead.py:52")
+    # finding: what the unused half of each rayfeat row and the grid of
+    # 1,024 CTAs cost, beside the same 12.6 MB in contiguous rows
+    n_ctas = -(-n_rows // 128)
+    rf8 = rayfeat[:, :8].contiguous()
+    got = launch_overhead.probe_copy(rayfeat, best, 128, whole_rows=True)
+    torch.cuda.synchronize()
+    if not torch.equal(got, launch_overhead.probe_copy_plain(rayfeat, best,
+                                                             128)):
+        fail("probe_copy whole rows: kernel and plain version differ")
+    turns = {"half rows": [], "whole rows": []}
+    for key in ("half rows", "whole rows", "whole rows", "half rows"):
+        turns[key].append(probes.hbm_ms(
+            lambda r, b: launch_overhead.probe_copy(
+                r, b, 128, whole_rows=key == "whole rows"),
+            (rayfeat, best)) * 1e3)
+    grid_us = probes.hbm_ms(
+        lambda: card_perf.probe_floor(dev, n_ctas)) * 1e3
+    flat_us = probes.hbm_ms(lambda r, b: b + r, (rf8, best)) * 1e3
+    whole, half = (" / ".join(f"{x:.2f}" for x in turns[k])
+                   for k in ("whole rows", "half rows"))
+    print(f"probe_copy finding, {n_rows} rows, tile 128: reading each "
+          f"rayfeat row whole {whole} us against half of it {half} us (in "
+          f"turns; max |d| 0) | an empty grid of the same {n_ctas} CTAs "
+          f"{grid_us:.2f} us | the bound's bytes in contiguous rows, best + "
+          f"rayfeat[:, :8].contiguous(): {flat_us:.2f} us")
 
     n_idx = 1 << 22
     for label, n_table, kw in (
@@ -443,15 +487,21 @@ def probe_phases(scene, camera, config):
                      lambda t, i: torch.gather(t, 0, i)),
             source="probe_gather")
 
-    # K4c-1's launch floor (a few hundred bytes), then the 227 KB block
-    # the kernels line reports
-    for n_bytes in (512, 227 * 1024):
-        compare(
-            "probe_smem", f"{n_bytes} B of dynamic shared memory "
-            "(reservation included)",
-            lambda: card_perf.probe_smem(n_bytes, dev),
-            lambda: card_perf.probe_smem_plain(n_bytes, dev), None, (),
-            card_perf.LANES * 4, "exp/pallas_perf_probe.py:36")
+    # K4c-1 at 512 B, then the 227 KB block the kernels line reports, each
+    # bounded by the card's launch floor: an empty one-CTA kernel of the
+    # same 128 threads, timed in this run as every probe kernel is
+    floor_ms = card_perf.launch_floor_ms(dev)
+    print(f"launch floor: an empty kernel of one CTA of 128 threads without "
+          f"shared memory, {floor_ms * 1e3:.3f} us (probes.hbm_ms)")
+    smem_us = [compare(
+        "probe_smem", f"{n_bytes} B of dynamic shared memory "
+        "(reservation included)",
+        lambda: card_perf.probe_smem(n_bytes, dev),
+        lambda: card_perf.probe_smem_plain(n_bytes, dev), None, (),
+        card_perf.LANES * 4, "exp/pallas_perf_probe.py:36",
+        floor_ms=floor_ms) * 1e3 for n_bytes in (512, 227 * 1024)]
+    print(f"probe_smem: 512 B {smem_us[0]:.3f} us, 227 KB {smem_us[1]:.3f} "
+          f"us, beside the launch floor {floor_ms * 1e3:.3f} us")
 
     # K4c-3 for one row of starts per SM, then the TPU's own single row,
     # the case the kernels line reports
@@ -485,6 +535,7 @@ def probe_phases(scene, camera, config):
                 "probe_gather": gather.probe_gather,
                 "probe_chained": gather.probe_chained,
                 "probe_smem": card_perf.probe_smem,
+                "probe_floor": card_perf.probe_floor,
                 "probe_stream": card_perf.probe_stream}
     for w in wrappers.values():
         w.launches = 0

@@ -9,7 +9,10 @@
 // the LAST 128-float row of the (bytes / 512, 128) scratch (so the whole
 // allocation is addressed), thread j writing j + bytes / 1024, and reads
 // it back mirrored (thread j reads column 127 - j, another thread's
-// write). Nothing bounds it: it is a yes/no probe, one launch per size.
+// write). It is a yes/no probe, one launch per size, and what bounds it
+// is that launch, not its 512 bytes: probe_floor_kernel, an empty kernel
+// of CTAs of the same 128 threads without shared memory, measures the
+// card's launch floor, the least time the same work could take.
 //
 // The reservation and the launch are separate C functions so the caller
 // can tell the expected refusal (cudaErrorInvalidValue from the
@@ -29,6 +32,8 @@ probe_smem_kernel(float* __restrict__ out, int n_rows, float tag) {
   __syncthreads();
   out[threadIdx.x] = row[LANES - 1 - threadIdx.x];
 }
+
+__global__ void __launch_bounds__(LANES) probe_floor_kernel() {}
 
 }  // namespace
 
@@ -52,5 +57,12 @@ extern "C" int probe_smem_reserve(int bytes) {
 extern "C" int probe_smem_launch(float* out, int bytes, void* stream) {
   probe_smem_kernel<<<1, LANES, bytes, static_cast<cudaStream_t>(stream)>>>(
       out, bytes / (LANES * 4), static_cast<float>(bytes / 1024));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// `ctas` CTAs of the empty kernel (128 threads, no shared memory): one is
+// the card's launch floor. Returns cudaGetLastError().
+extern "C" int probe_floor_launch(int ctas, void* stream) {
+  probe_floor_kernel<<<ctas, LANES, 0, static_cast<cudaStream_t>(stream)>>>();
   return static_cast<int>(cudaGetLastError());
 }

@@ -101,11 +101,13 @@ def hbm_ms(fn, inputs=(), replays: int = 10) -> float:
     copies of the input tensors, each writing an output of its own, enough
     of them (2 to 64) that one round touches three times the L2 cache: by
     the time a copy comes round again it has been evicted. This is the
-    time to hold against a bound of bytes over the HBM rate."""
+    time to hold against a bound of bytes over the HBM rate. fn may return
+    None (a kernel without inputs or output: 64 launches)."""
     out = fn(*inputs)
     torch.cuda.synchronize()
-    set_bytes = sum(t.numel() * t.element_size() for t in (*inputs, out))
-    n = min(max(-(-3 * L2_BYTES // set_bytes), 2), 64)
+    outs = () if out is None else (out,)
+    set_bytes = sum(t.numel() * t.element_size() for t in (*inputs, *outs))
+    n = min(max(-(-3 * L2_BYTES // max(set_bytes, 1)), 2), 64)
     copies = [inputs] + [tuple(t.clone() for t in inputs)
                          for _ in range(n - 1)]
     return _replay_ms(lambda: [fn(*c) for c in copies], n, replays)

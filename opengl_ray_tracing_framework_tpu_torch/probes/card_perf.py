@@ -63,6 +63,8 @@ def _declare_smem(lib):
     lib.probe_smem_launch.argtypes = [ctypes.c_void_p, ctypes.c_int,
                                       ctypes.c_void_p]
     lib.probe_smem_launch.restype = ctypes.c_int
+    lib.probe_floor_launch.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    lib.probe_floor_launch.restype = ctypes.c_int
     return lib
 
 
@@ -109,6 +111,32 @@ def probe_smem(n_bytes, device="cuda"):
 
 
 probe_smem.launches = 0
+
+
+def probe_floor(device="cuda", ctas=1):
+    """Launch `ctas` CTAs of an empty kernel of 128 threads without shared
+    memory (csrc/probe_smem.cu): with one CTA, the card's launch floor,
+    K4c-1's bound. Returns None: the kernel has no output and no plain
+    version. `probe_floor.launches` counts kernel launches."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise NotImplementedError(
+            f"probe_floor times a launch on the card; {device} has none")
+    if ctas < 1:
+        raise ValueError(f"probe_floor: ctas must be >= 1, got {ctas}")
+    lib = nvcc.load("probe_smem")
+    launch("probe_floor", device,
+           lambda stream: lib.probe_floor_launch(ctas, stream))
+    probe_floor.launches += 1
+
+
+probe_floor.launches = 0
+
+
+def launch_floor_ms(device="cuda"):
+    """Device milliseconds of one launch of the empty one-CTA kernel,
+    timed as every probe kernel is (probes.hbm_ms)."""
+    return hbm_ms(lambda: probe_floor(device))
 
 
 def run_smem(device="cuda"):

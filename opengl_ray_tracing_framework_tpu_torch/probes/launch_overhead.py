@@ -5,11 +5,14 @@
 The function is the TPU probe's: out = best + rayfeat[:, :8] per tile of
 rows, the span-sweep kernel's block structure without its work, with and
 without every tile reading its own (C,) span and entry-distance rows.
-csrc/probe_copy.cu runs one CTA per tile; `run` times it at tiles of 128,
+csrc/probe_copy.cu runs one CTA per tile (copy_plan: one thread per
+16-byte piece of the tile's best rows, at most 1,024, a thread with more
+pieces loading four at a time before it adds); `run` times it at tiles of 128,
 256, 1,024 and 8,192 rows against the one-call best + rayfeat[:, :8] and
 against the bytes it must move over the card's memory rate, with its inputs
 coming from HBM (hbm_ms), and reports microseconds per CTA: the scheduling
-cost a kernel with one CTA per ray tile (K1, K2) pays before any work. The
+cost a kernel with one CTA per ray tile (K1, K2) pays before any work,
+and then an empty grid of each tile's CTAs (card_perf.probe_floor). The
 time with the inputs left in the L2 cache (graph_ms) is printed beside it.
 """
 
@@ -20,11 +23,24 @@ import ctypes
 import torch
 
 from ..utils import nvcc
-from . import (PEAK_HBM_BYTES, check_tensor, cuda_ms, device_line, graph_ms,
-               hbm_ms, launch)
+from . import (PEAK_HBM_BYTES, card_perf, check_tensor, cuda_ms, device_line,
+               graph_ms, hbm_ms, launch)
 
 N_ROWS, N_CLUSTERS = 131072, 589   # the TPU probe's shapes
 TILES = (128, 256, 1024, 8192)
+COPY_THREADS = 1024   # the most threads of a CTA of csrc/probe_copy.cu
+
+
+def copy_plan(tile):
+    """(threads, pieces per thread) of a CTA of csrc/probe_copy.cu: one
+    thread per 16-byte piece of the tile's best rows (two per row), at most
+    COPY_THREADS. Thread x takes pieces k * threads + x of its tile, k <
+    pieces per thread (four at a time where it has more than one); piece j
+    is half j % 2 of the tile's row j // 2."""
+    if tile < 1:
+        raise ValueError(f"probe_copy: tile must be >= 1, got {tile}")
+    threads = min(2 * tile, COPY_THREADS)
+    return threads, -(-2 * tile // threads)
 
 
 def probe_copy_plain(rayfeat, best, tile, spans=None, tnear=None):
@@ -39,27 +55,29 @@ probe_copy_plain.calls = 0
 
 def _declare(lib):
     lib.probe_copy_launch.argtypes = ([ctypes.c_void_p] * 5
-                                      + [ctypes.c_int] * 3
+                                      + [ctypes.c_int] * 5
                                       + [ctypes.c_void_p])
     lib.probe_copy_launch.restype = ctypes.c_int
     return lib
 
 
-def probe_copy(rayfeat, best, tile, spans=None, tnear=None):
+def probe_copy(rayfeat, best, tile, spans=None, tnear=None,
+               whole_rows=False):
     """out = best + rayfeat[:, :8], one CTA per `tile` rows
     (csrc/probe_copy.cu) on CUDA tensors, probe_copy_plain on CPU tensors.
 
     rayfeat (R, 16) f32; best (R, 8) f32; spans (G, C) i32 cluster ids
     >= 0 and tnear (G, C) f32 distances >= 0 with G = ceil(R / tile), or
-    both None. `probe_copy.launches` counts kernel launches."""
+    both None. whole_rows=True makes the kernel also load the half of
+    every rayfeat row it does not use (the same output): what reading
+    whole rows would cost. `probe_copy.launches` counts kernel launches."""
     dev = rayfeat.device
     if dev.type == "cpu":
         return probe_copy_plain(rayfeat, best, tile, spans, tnear)
     if dev.type != "cuda":
         raise NotImplementedError(f"probe_copy has no {dev} version")
     r = rayfeat.shape[0]
-    if tile < 1:
-        raise ValueError(f"probe_copy: tile must be >= 1, got {tile}")
+    threads, _ = copy_plan(tile)
     check_tensor("probe_copy", "rayfeat", rayfeat, torch.float32, (r, 16),
                  dev)
     check_tensor("probe_copy", "best", best, torch.float32, (r, 8), dev)
@@ -78,7 +96,7 @@ def probe_copy(rayfeat, best, tile, spans=None, tnear=None):
         rayfeat.data_ptr(), best.data_ptr(),
         spans.data_ptr() if n_cols else None,
         tnear.data_ptr() if n_cols else None,
-        out.data_ptr(), r, tile, n_cols, stream))
+        out.data_ptr(), r, tile, n_cols, threads, int(whole_rows), stream))
     probe_copy.launches += 1
     return out
 
@@ -156,6 +174,13 @@ def run(device="cuda", repeats=50):
                   f"{bound_ms * 1e3:.2f} us | inputs left in L2 "
                   f"{warm_ms * 1e3:.2f} us | {loop_ms * 1e3:.2f} us in a "
                   "Python loop")
+    # the empty grids last: a copy timed right after a run of empty
+    # launches read 4% slower (PERF.md)
+    for tile in TILES:
+        n_ctas = -(-N_ROWS // tile)
+        empty_ms = hbm_ms(lambda: card_perf.probe_floor(device, n_ctas))
+        print(f"launch_overhead: tile {tile:5d}: an empty grid of "
+              f"{n_ctas:5d} CTAs {empty_ms * 1e3:.2f} us")
     return rows
 
 

@@ -1,6 +1,8 @@
-"""Device microseconds of the chained-lookup and block-sum probe kernels
-(K4c-2, K4c-3) and of the shared-memory probe (K4c-1) at its launch floor
-and at 227 KB, and nothing else, each held to its plain version first.
+"""Device microseconds of the per-CTA copy (K4a, tile 128, with and
+without span rows), the chained-lookup and block-sum probe kernels (K4c-2,
+K4c-3), the shared-memory probe (K4c-1) at 512 B and at 227 KB and, where
+the tree has it, the empty one-CTA kernel that measures the card's launch
+floor; nothing else, each held to its plain version first.
 
     python -m opengl_ray_tracing_framework_tpu_torch.probes.probe_seconds
 
@@ -11,7 +13,8 @@ repository are compared only inside one call on one card, in turns
 (parent, change, change, parent), each run from its own tree's root. This
 module uses only entry points every tree of the port has since the probes
 came (a tree without probe_chained runs its chained lookups as
-probe_gather(..., steps=8)), so a copy of it runs in an older tree too.
+probe_gather(..., steps=8); one without launch_floor_ms has no floor to
+time), so a copy of it runs in an older tree too.
 It prints one JSON line: {case: microseconds}.
 """
 
@@ -21,7 +24,7 @@ import json
 
 import torch
 
-from . import card_perf, device_line, gather, hbm_ms
+from . import card_perf, device_line, gather, hbm_ms, launch_overhead
 
 STEPS = 8
 
@@ -44,6 +47,18 @@ def run(device="cuda"):
     device = torch.device(device)
     chained = _chained()
     out = {}
+    rayfeat, best = launch_overhead.make_inputs(device)
+    want = launch_overhead.probe_copy_plain(rayfeat, best, 128)
+    for label, extra in (
+            ("no span rows", ()),
+            ("span rows", launch_overhead.make_span_rows(
+                device, launch_overhead.N_ROWS, 128))):
+        if not torch.equal(launch_overhead.probe_copy(rayfeat, best, 128,
+                                                      *extra), want):
+            raise RuntimeError(f"probe_seconds: copy ({label}) differs")
+        out[f"K4a tile 128, {label}"] = hbm_ms(
+            lambda *x: launch_overhead.probe_copy(x[0], x[1], 128, *x[2:]),
+            (rayfeat, best, *extra)) * 1e3
     for s in (512, 3000, 4096):
         table, idx = _columns_differ(device, s)
         got = chained(table, idx)
@@ -63,6 +78,8 @@ def run(device="cuda"):
     for n_bytes in (512, 227 * 1024):
         out[f"K4c-1 {n_bytes} B"] = hbm_ms(
             lambda: card_perf.probe_smem(n_bytes, device)) * 1e3
+    if hasattr(card_perf, "launch_floor_ms"):
+        out["launch floor"] = card_perf.launch_floor_ms(device) * 1e3
     print(json.dumps(out))
     return out
 

@@ -7,7 +7,11 @@ copies) and 302 (no multiple of 4: hand-copied chunks), and the refusal of
 a block wider than the kernels' 4,096; the chained lookups (K4c-2,
 csrc/probe_gather.cu) on tables whose columns differ and the block sums
 (K4c-3, csrc/probe_stream.cu) for one and many rows of starts, and the
-refusal of a table column over the shared-memory limit.
+refusal of a table column over the shared-memory limit; the per-CTA copy
+(K4a, csrc/probe_copy.cu) at every tile of launch_overhead.TILES on row
+counts that are no multiple of the tile, with and without span rows, and
+with whole rayfeat rows read; the empty launch-floor kernel and the
+shared-memory probe (K4c-1) at 227 KB (csrc/probe_smem.cu).
 
 Every test here is marked `cuda` and skips without a card: the kernels
 are CUDA C++ and have no interpreted mode. This file imports nothing of
@@ -26,7 +30,8 @@ from opengl_ray_tracing_framework_tpu_torch.models.scene import (
 from opengl_ray_tracing_framework_tpu_torch.ops import (
     cluster_intersect as tci)
 from opengl_ray_tracing_framework_tpu_torch.ops import sweep as tsweep
-from opengl_ray_tracing_framework_tpu_torch.probes import card_perf, gather
+from opengl_ray_tracing_framework_tpu_torch.probes import (
+    card_perf, gather, launch_overhead)
 
 WIDTHS = [256, 512, 1024, 302, 4096]
 
@@ -225,3 +230,44 @@ def test_stream_kernel_equals_plain(g, n_blocks, integer):
         assert torch.equal(got, want)
     else:
         torch.testing.assert_close(got, want, rtol=1e-5, atol=0.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile", launch_overhead.TILES)
+@pytest.mark.parametrize("n_rows", [131072 - 37, 1000])
+@pytest.mark.parametrize("span_rows", [False, True])
+def test_copy_kernel_equals_plain(tile, n_rows, span_rows):
+    """K4a bit for bit best + rayfeat[:, :8] (an add of the same two floats
+    in any order), the ragged last tile included, with the half of each
+    rayfeat row it does not use read as well (whole_rows) or not."""
+    dev = _card()
+    rayfeat, best = launch_overhead.make_inputs(dev, n_rows, seed=tile)
+    extra = launch_overhead.make_span_rows(dev, n_rows, tile, seed=n_rows) \
+        if span_rows else ()
+    want = launch_overhead.probe_copy_plain(rayfeat, best, tile, *extra)
+    launches = launch_overhead.probe_copy.launches
+    calls = launch_overhead.probe_copy_plain.calls
+    for whole in (False, True):
+        got = launch_overhead.probe_copy(rayfeat, best, tile, *extra,
+                                         whole_rows=whole)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), \
+            f"{int((got != want).any(dim=1).sum())} rows differ"
+    assert launch_overhead.probe_copy.launches == launches + 2
+    assert launch_overhead.probe_copy_plain.calls == calls
+
+
+@pytest.mark.cuda
+def test_launch_floor_kernel_and_the_largest_block():
+    """The empty kernel launches (one CTA, and a grid of 1,024), and the
+    shared-memory probe at 227 KB still reads back its row."""
+    dev = _card()
+    launches = card_perf.probe_floor.launches
+    assert card_perf.probe_floor(dev) is None
+    card_perf.probe_floor(dev, ctas=1024)
+    torch.cuda.synchronize()
+    assert card_perf.probe_floor.launches == launches + 2
+    assert card_perf.launch_floor_ms(dev) > 0.0
+    got = card_perf.probe_smem(227 * 1024, dev)
+    torch.cuda.synchronize()
+    assert torch.equal(got, card_perf.probe_smem_plain(227 * 1024, dev))

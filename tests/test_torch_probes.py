@@ -40,6 +40,48 @@ def test_copy_bytes():
     assert launch_overhead.copy_bytes(1000, 128, 10) == 96000 + 8 * 80
 
 
+@pytest.mark.parametrize("tile", [*launch_overhead.TILES, 1, 3, 100, 600])
+@pytest.mark.parametrize("n_rows", [131072, 131072 - 37, 1000])
+def test_copy_plan_covers_every_row_once(tile, n_rows):
+    """copy_plan's threads and pieces per thread, cut as the kernel cuts
+    them (thread x takes piece k * threads + x of its tile, pieces past
+    the tile's last row skipped), load each half of every row of every
+    CTA once, the ragged last tile included; a CTA has at most 1,024
+    threads and no thread without a piece where the tile fills it."""
+    threads, per = launch_overhead.copy_plan(tile)
+    assert 1 <= threads <= launch_overhead.COPY_THREADS
+    assert threads * per >= 2 * tile > threads * (per - 1)
+    n_ctas = -(-n_rows // tile)
+    for rows in {min(tile, n_rows), n_rows - (n_ctas - 1) * tile}:
+        j = (np.arange(per)[:, None] * threads
+             + np.arange(threads)[None, :]).ravel()
+        j = j[j < 2 * rows]
+        seen = np.zeros((rows, 2), np.int32)
+        np.add.at(seen, (j // 2, j % 2), 1)
+        np.testing.assert_array_equal(seen, 1)
+    with pytest.raises(ValueError):
+        launch_overhead.copy_plan(0)
+
+
+def test_copy_whole_rows_is_the_same_function():
+    """whole_rows only makes the kernel load the half of each rayfeat row
+    it does not use: on the CPU the same best + rayfeat[:, :8]."""
+    rayfeat, best = launch_overhead.make_inputs("cpu", n_rows=300, seed=5)
+    want = launch_overhead.probe_copy(rayfeat, best, 128)
+    got = launch_overhead.probe_copy(rayfeat, best, 128, whole_rows=True)
+    assert torch.equal(got, want)
+    assert torch.equal(got, best + rayfeat[:, :8])
+
+
+def test_launch_floor_is_the_cards():
+    """The empty kernel times a launch: it has no plain version, and asked
+    for the CPU it raises without counting a launch."""
+    launches = card_perf.probe_floor.launches
+    with pytest.raises(NotImplementedError):
+        card_perf.probe_floor("cpu")
+    assert card_perf.probe_floor.launches == launches
+
+
 def test_gather_matches_gather_probe():
     """exp/pallas_gather_probe.py:40-43, 54-55: table = arange(N) * 2,
     idx (8, 128) random, out = table[idx]."""
