@@ -125,7 +125,13 @@ when torch sees no CUDA device, and when anything below fails:
     2 bounces against one process's gradients (loss rtol 1e-4, leaves
     rtol 5e-3 with an atol of 1e-4 of the leaf's largest entry). Each
     rank's K1 launches (> 0), plain calls (0) and seconds are printed; two
-    ranks on one card give no scaling figure.
+    ranks on one card give no scaling figure;
+15. the bench as a user runs it: `python3 bench_torch.py` in a subprocess
+    once per tracer (BENCH_TRACER sweep, then schedule) at the reference
+    frame with BENCH_PASSES=2; each run's JSON line is printed and must
+    carry every field, name this card with its power limit, hold its
+    correctness check (`correct`), call no plain version, and launch its
+    tracer's kernel (K1 or K2) and not the other's.
 
 Each kernel's bound is the least time the card could take for the work
 this run's inputs need: the larger of its FP32 operations over the card's
@@ -221,16 +227,14 @@ def compare_records(got, want, slot2tri, label, min_hit_agree=0.9999,
 
 
 def compare_images(label, img, ref, note=""):
-    """The image criterion (tests/test_tpu.py:57-60) on two (H, W, 3)
-    tensors: finite, means within 1e-4 relative, < 1e-3 of the values off
-    at atol/rtol 1e-3."""
-    import numpy as np
+    """The port's image criterion (bench.images_agree: tests/test_tpu.py:
+    57-60) on two (H, W, 3) tensors; prints the gaps, fails unless held."""
+    from opengl_ray_tracing_framework_tpu_torch.bench import images_agree
     g, c = img.cpu().numpy(), ref.cpu().numpy()
-    rel_mean = abs(g.mean() - c.mean()) / max(c.mean(), 1e-6)
-    mismatch = float((~np.isclose(g, c, atol=1e-3, rtol=1e-3)).mean())
+    held, rel_mean, mismatch = images_agree(g, c)
     print(f"{label}: {note}mean {g.mean():.6f} vs {c.mean():.6f} (rel "
           f"{rel_mean:.2e}) | values off at 1e-3: {mismatch:.2e}")
-    if not np.isfinite(g).all() or rel_mean >= 1e-4 or mismatch >= 1e-3:
+    if not held:
         fail(f"{label}: the images disagree")
 
 
@@ -1046,6 +1050,60 @@ def shard_phase(ortf, scene, config, passes, grad_ref):
                         rtol)
 
 
+BENCH_TIMEOUT_S = 600       # one bench_torch.py run that takes longer fails
+
+
+def bench_phase():
+    """Phase 15: bench_torch.py as a user runs it, once per tracer at the
+    reference frame with 2 timed passes; each run's last line must carry
+    every field, name this card, hold its correctness check, call no plain
+    version and launch its tracer's kernel and not the other's."""
+    import os
+    import subprocess
+    from pathlib import Path
+
+    import torch
+    from opengl_ray_tracing_framework_tpu_torch.bench import FIELDS
+    kernel_counts = {"sweep": ("k1_launches_per_pass",
+                               "k2_launches_per_pass"),
+                     "schedule": ("k2_launches_per_pass",
+                                  "k1_launches_per_pass")}
+    for tracer, (own, other) in kernel_counts.items():
+        label = f"bench_torch.py, {tracer} tracer"
+        t0 = time.perf_counter()
+        try:
+            proc = subprocess.run(
+                [sys.executable, "bench_torch.py"],
+                cwd=Path(__file__).resolve().parent, capture_output=True,
+                text=True, timeout=BENCH_TIMEOUT_S,
+                env={**os.environ, "BENCH_TRACER": tracer,
+                     "BENCH_PASSES": "2"})
+        except subprocess.TimeoutExpired:
+            fail(f"{label}: no result in {BENCH_TIMEOUT_S} s")
+        for ln in proc.stderr.strip().splitlines()[-3:]:
+            print(f"{label} stderr: {ln}")
+        if proc.returncode != 0:
+            fail(f"{label}: exit code {proc.returncode}")
+        try:
+            res = json.loads(proc.stdout.strip().splitlines()[-1])
+        except (IndexError, ValueError):
+            fail(f"{label}: no JSON line")
+        print(f"{label} ({time.perf_counter() - t0:.1f} s): "
+              f"{json.dumps(res)}")
+        missing = [f for f in FIELDS if f not in res]
+        if missing:
+            fail(f"{label}: the line lacks {missing}")
+        if res["device"] != torch.cuda.get_device_name(0) \
+                or not res["power_limit"]:
+            fail(f"{label}: device {res['device']!r}, power limit "
+                 f"{res['power_limit']!r}")
+        if res["correct"] is not True or res["plain_calls"] != 0:
+            fail(f"{label}: correct {res['correct']}, plain calls "
+                 f"{res['plain_calls']}")
+        if not (res[own] > 0 and res[other] == 0):
+            fail(f"{label}: {own} {res[own]}, {other} {res[other]}")
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--png", help="also save the rendered image here")
@@ -1553,6 +1611,9 @@ def main() -> int:
     # 13. the CLI; 14. multi-device
     cli_phase(ortf, scene, camera, config)
     shard_phase(ortf, scene, config, first_passes[:2], grad_ref)
+
+    # 15. the bench, as a subprocess per tracer
+    bench_phase()
 
     if args.profile:
         profile_pass("sweep", ortf, scene, camera, config)

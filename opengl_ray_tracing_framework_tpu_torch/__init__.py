@@ -31,7 +31,8 @@ The entry points of the JAX package have their counterparts: cli.py (the
 headless renderer, `python -m opengl_ray_tracing_framework_tpu_torch.cli`,
 with checkpoint / resume through utils/checkpoint.py, whose npz files
 cross between the packages, and the --timing breakdown of
-utils/timing.py), parallel/sharding.py (row-sharded rendering on
+utils/timing.py), bench.py (the headline rays/s bench, fwd and fwd+bwd,
+run as bench_torch.py at the repository root), parallel/sharding.py (row-sharded rendering on
 torch.distributed: init_distributed, make_mesh / make_mesh_2d,
 replicate_scene, render_pass_sharded, gather_image) with
 parallel/autodiff.py's param_grad_sharded / material_grad_sharded, and

@@ -11,7 +11,9 @@ refusal of a table column over the shared-memory limit; the per-CTA copy
 (K4a, csrc/probe_copy.cu) at every tile of launch_overhead.TILES on row
 counts that are no multiple of the tile, with and without span rows, and
 with whole rayfeat rows read; the empty launch-floor kernel and the
-shared-memory probe (K4c-1) at 227 KB (csrc/probe_smem.cu).
+shared-memory probe (K4c-1) at 227 KB (csrc/probe_smem.cu); and the
+bench's correctness check (bench.parity: a render through K1 or K2 against
+the CPU's plain render), which holds and which fails on a moved image.
 
 Every test here is marked `cuda` and skips without a card: the kernels
 are CUDA C++ and have no interpreted mode. This file imports nothing of
@@ -25,6 +27,7 @@ import numpy as np
 import pytest
 import torch
 
+from opengl_ray_tracing_framework_tpu_torch import bench
 from opengl_ray_tracing_framework_tpu_torch.models.scene import (
     build_test_scene)
 from opengl_ray_tracing_framework_tpu_torch.ops import (
@@ -32,6 +35,7 @@ from opengl_ray_tracing_framework_tpu_torch.ops import (
 from opengl_ray_tracing_framework_tpu_torch.ops import sweep as tsweep
 from opengl_ray_tracing_framework_tpu_torch.probes import (
     card_perf, gather, launch_overhead)
+from opengl_ray_tracing_framework_tpu_torch.utils.config import RenderConfig
 
 WIDTHS = [256, 512, 1024, 302, 4096]
 
@@ -271,3 +275,26 @@ def test_launch_floor_kernel_and_the_largest_block():
     got = card_perf.probe_smem(227 * 1024, dev)
     torch.cuda.synchronize()
     assert torch.equal(got, card_perf.probe_smem_plain(227 * 1024, dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tracer", ["sweep", "schedule"])
+def test_bench_parity_holds_and_fails(tracer, monkeypatch):
+    """bench.parity renders its 128x64, 8-bounce frame through the tracer's
+    kernel and through the plain versions on the CPU: the two hold to the
+    image criterion, and a card image moved by 5e-3 does not."""
+    device = _card()
+    scene = build_test_scene(1, device=device)[1]
+    config = RenderConfig(width=32, height=16, max_bounce=2,
+                          cast_backend=tracer)
+    launches = tsweep.sweep.launches + tci.cluster_intersect.launches
+    assert bench.parity(scene, config, device) is True
+    assert tsweep.sweep.launches + tci.cluster_intersect.launches > launches
+    render = bench.render_radiance
+
+    def moved(scene, *args, **kwargs):
+        img = render(scene, *args, **kwargs)
+        return img + 5e-3 if img.is_cuda else img
+
+    monkeypatch.setattr(bench, "render_radiance", moved)
+    assert bench.parity(scene, config, device) is False
