@@ -132,6 +132,16 @@ when torch sees no CUDA device, and when anything below fails:
     carry every field, name this card with its power limit, hold its
     correctness check (`correct`), call no plain version, and launch its
     tracer's kernel (K1 or K2) and not the other's.
+16. the row-balance probe (probes/row_balance.py, the port of
+    exp/scaling_probe.py's `tpu` mode) once per tracer on phase 5's
+    scene and frame: 8 blocks of 64 rows, 131,072 rays per batch, frame 1,
+    a warm-up and 3 timed calls per block, and one call per block with
+    CUDA events around each K1 or K2 launch; the stacked blocks must agree
+    with one whole-frame _trace_rows of the same frame by the image
+    criterion, every block be finite with a positive mean, launch its
+    tracer's kernel and not the other's and call no plain version, every
+    efficiency (wall and kernel) lie in (0, 1] and every block's kernel
+    time be positive. Its JSON line is printed with the phase's seconds.
 
 Each kernel's bound is the least time the card could take for the work
 this run's inputs need: the larger of its FP32 operations over the card's
@@ -151,7 +161,9 @@ It prints one line of numbers per phase, then a JSON line describing the
 kernels, then {"ok": true, "device": {...}} as the last line. --profile
 adds, before those two, a torch.profiler summary of one sweep pass and one
 schedule pass (device time in kernels, the kernels that took most of it,
-K1's and K2's time per launch) and K1's device time by cast site.
+K1's and K2's time per launch), K1's device time by cast site, and for
+each of phase 16's row blocks the profiler's K1 or K2 device time and
+its device time in all kernels beside the probe's CUDA-event figure.
 """
 
 from __future__ import annotations
@@ -283,6 +295,42 @@ def profile_pass(label, ortf, scene, camera, config):
             t, n = sum(r[1] for r in hits), sum(r[2] for r in hits)
             print(f"profile {label}: {kernel} {t * 1e3:.1f} ms in {n} "
                   f"launches, {t / n * 1e3:.4f} ms each")
+
+
+def profile_row_blocks(scene, camera, config):
+    """Each of phase 16's row blocks traced once under torch.profiler per
+    tracer: the device time of its K1 or K2 launches and of all its
+    kernels, beside the probe's CUDA-event kernel_ms of the same blocks,
+    with the efficiency of each."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from opengl_ray_tracing_framework_tpu_torch.probes import row_balance
+    from opengl_ray_tracing_framework_tpu_torch.render import _trace_rows
+    for tracer, kernel in (("sweep", "sweep_kernel"),
+                           ("schedule", "cluster_intersect_kernel")):
+        cfg = config.replace(cast_backend=tracer)
+        res = row_balance.block_seconds(scene, camera, cfg, repeats=1)
+        rows = cfg.height // res["blocks"]
+        own, busy = [], []
+        for b in range(res["blocks"]):
+            with torch.no_grad(), profile(activities=[
+                    ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                _trace_rows(scene, camera, res["frame"], cfg, b * rows, rows,
+                            res["rays_per_tile"])
+                torch.cuda.synchronize()
+            dev = [(e.key, e.self_device_time_total / 1e3)
+                   for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+            own.append(sum(t for k, t in dev if kernel in k))
+            busy.append(sum(t for _, t in dev))
+        if not all(own):
+            fail(f"profile row blocks, {tracer}: no {kernel} time")
+        for label, ms in (("events", res["kernel_ms"]),
+                          (f"profiler {kernel}", own),
+                          ("profiler all kernels", busy)):
+            print(f"profile row blocks, {tracer} tracer, {label}: ms "
+                  f"{json.dumps(ms)} | efficiency "
+                  f"{json.dumps(row_balance.efficiency(ms))}")
 
 
 def profile_k1_casts(ortf, sw, scene, camera, config):
@@ -1104,6 +1152,44 @@ def bench_phase():
             fail(f"{label}: {own} {res[own]}, {other} {res[other]}")
 
 
+def row_balance_phase(scene, camera, config):
+    """Phase 16: probes/row_balance.py's blocks per tracer at the
+    reference frame, held against one whole-frame trace."""
+    import torch
+    from opengl_ray_tracing_framework_tpu_torch.probes import row_balance
+    from opengl_ray_tracing_framework_tpu_torch.render import _trace_rows
+    for tracer, (own, other) in (("sweep", ("sweep", "cluster_intersect")),
+                                 ("schedule", ("cluster_intersect",
+                                               "sweep"))):
+        label = f"row balance, {tracer} tracer"
+        cfg = config.replace(cast_backend=tracer)
+        t0 = time.perf_counter()
+        res = row_balance.block_seconds(scene, camera, cfg, keep=True)
+        line = row_balance.probe_line(res, scene, "stand-in")
+        probe_s = time.perf_counter() - t0
+        print(f"{label} ({probe_s:.1f} s): {json.dumps(line)}")
+        with torch.no_grad():
+            whole = _trace_rows(
+                scene, camera, line["frame"], cfg, 0, cfg.height,
+                line["rays_per_tile"])
+        compare_images(f"{label}, blocks vs whole frame", res["radiance"],
+                       whole, f"{line['blocks']} blocks of "
+                       f"{cfg.height // line['blocks']} rows, frame "
+                       f"{line['frame']} | ")
+        for b, block in enumerate(res["radiance"].chunk(line["blocks"])):
+            check_image(f"{label}, block {b}", block)
+        effs = [*line["efficiency"].values(),
+                *line["kernel_efficiency"].values()]
+        if not (all(n > 0 for n in line["launches"][own])
+                and not any(line["launches"][other])
+                and not any(line["plain_calls"])
+                and all(0 < e <= 1 for e in effs)
+                and all(ms > 0 for ms in line["kernel_ms"])):
+            fail(f"{label}: launches {line['launches']}, plain calls "
+                 f"{line['plain_calls']}, efficiencies {effs}, kernel ms "
+                 f"{line['kernel_ms']}")
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--png", help="also save the rendered image here")
@@ -1615,10 +1701,14 @@ def main() -> int:
     # 15. the bench, as a subprocess per tracer
     bench_phase()
 
+    # 16. the row-balance probe, per tracer
+    row_balance_phase(scene, camera, config)
+
     if args.profile:
         profile_pass("sweep", ortf, scene, camera, config)
         profile_k1_casts(ortf, sw, scene, camera, config)
         profile_pass("schedule", ortf, scene, camera, sched_config)
+        profile_row_blocks(scene, camera, config)
 
     print(f"chip_smoke: every phase passed in "
           f"{time.perf_counter() - t_start:.1f} s")

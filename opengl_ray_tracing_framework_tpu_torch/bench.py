@@ -111,11 +111,12 @@ def images_agree(img, ref) -> tuple[bool, float, float]:
     return held, float(rel_mean), off
 
 
-def build_scene(name: str, device):
-    """The bench's scene by BENCH_SCENE name, on `device`."""
+def build_scene(name: str, device, subdiv: int = 6):
+    """The bench's scene by BENCH_SCENE name, on `device`; `subdiv` sets
+    the stand-in's icosphere subdivisions (6: 81,922 triangles)."""
     if name == "stand-in":
         return build_test_scene(
-            6, material=preset_materials()["tear_glass"],
+            subdiv, material=preset_materials()["tear_glass"],
             env=make_gradient_hdr(1024, 512), device=device)[1]
     if name == "loong":
         return build_reference_scene(objects=("floor", "loong"),
@@ -183,7 +184,8 @@ def power_limit(device) -> str | None:
     return device_line().rsplit(",", 1)[1].strip()
 
 
-def _counts():
+def counts() -> tuple[int, int, int]:
+    """(K1 launches, K2 launches, calls of their plain versions) so far."""
     return (sw.sweep.launches, ci.cluster_intersect.launches,
             sw.sweep_plain.calls + ci.cluster_intersect_plain.calls)
 
@@ -245,13 +247,13 @@ def run(width: int = WIDTH, height: int = HEIGHT, bounces: int = BOUNCES,
                 TRACERS[tracer], Path(tmp) / f"{TRACERS[tracer]}.so")[0]
 
     _peak_reset(device)
-    before = _counts()
+    before = counts()
     t0 = time.perf_counter()
     for _ in range(n_timed):
         state = render_pass(scene, camera, state, config, rays_per_tile)
         fence_pass(state)
     elapsed = (time.perf_counter() - t0) / n_timed
-    after = _counts()
+    after = counts()
     peak_fwd = _peak_gib(device)
     k1_per_pass = (after[0] - before[0]) / n_timed
     k2_per_pass = (after[1] - before[1]) / n_timed
@@ -278,12 +280,12 @@ def run(width: int = WIDTH, height: int = HEIGHT, bounces: int = BOUNCES,
     bwd_compile_s = time.perf_counter() - t0
     n_bwd = max(1, n_timed - 1)
     _peak_reset(device)
-    before = _counts()
+    before = counts()
     t0 = time.perf_counter()
     for _ in range(n_bwd):
         loss = grad_step()
     bwd_elapsed = (time.perf_counter() - t0) / n_bwd
-    plain_calls += _counts()[2] - before[2]
+    plain_calls += counts()[2] - before[2]
     peak_bwd = _peak_gib(device)
 
     if env.get("BENCH_TIMING") == "1":

@@ -28,6 +28,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
+LEAD_CYCLES = 1 << 19   # ~0.26 ms at 1.98 GHz: see launch_events
 KERNELS: dict = {}   # source name -> (declare(lib), smoke(device) -> launch)
 _LOADED: dict = {}
 
@@ -116,3 +117,35 @@ def loaded_from(name: str, path: Path):
             del _LOADED[name]
         else:
             _LOADED[name] = saved
+
+
+@contextlib.contextmanager
+def launch_events(name: str, log: list):
+    """Inside the block, each call of csrc/<name>.cu's `<name>_launch` lies
+    between two CUDA events recorded on the current stream just before and
+    after it, appended to `log` as (start, end): the kernel's device time.
+    Before the first event the stream is kept busy for LEAD_CYCLES of the
+    card's clock, longer than the launch call takes on the host, so the
+    kernel is queued when the stream passes that event: on an idle stream
+    the pair would also time the launch call (on an H100 that more than
+    doubled K2's time against the profiler's). Nothing is read back to the host, so the launches
+    stay asynchronous; the lead adds device time, so wall times are taken
+    outside the block."""
+    import torch
+    lib, fn = load(name), f"{name}_launch"
+    launch = getattr(lib, fn)
+
+    def timed(*args):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda._sleep(LEAD_CYCLES)
+        start.record()
+        rc = launch(*args)
+        end.record()
+        log.append((start, end))
+        return rc
+
+    setattr(lib, fn, timed)
+    try:
+        yield log
+    finally:
+        setattr(lib, fn, launch)

@@ -27,14 +27,15 @@ import numpy as np
 import pytest
 import torch
 
-from opengl_ray_tracing_framework_tpu_torch import bench
+from opengl_ray_tracing_framework_tpu_torch import Camera, bench
 from opengl_ray_tracing_framework_tpu_torch.models.scene import (
     build_test_scene)
 from opengl_ray_tracing_framework_tpu_torch.ops import (
     cluster_intersect as tci)
 from opengl_ray_tracing_framework_tpu_torch.ops import sweep as tsweep
 from opengl_ray_tracing_framework_tpu_torch.probes import (
-    card_perf, gather, launch_overhead)
+    card_perf, gather, launch_overhead, row_balance)
+from opengl_ray_tracing_framework_tpu_torch.render import _trace_rows
 from opengl_ray_tracing_framework_tpu_torch.utils.config import RenderConfig
 
 WIDTHS = [256, 512, 1024, 302, 4096]
@@ -298,3 +299,30 @@ def test_bench_parity_holds_and_fails(tracer, monkeypatch):
 
     monkeypatch.setattr(bench, "render_radiance", moved)
     assert bench.parity(scene, config, device) is False
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tracer", ["sweep", "schedule"])
+def test_row_balance_blocks_on_the_card(tracer):
+    """row_balance.block_seconds through the tracer's kernel: every block
+    launches it and not the other tracer's, calls no plain version and has
+    kernel time; the stacked blocks agree with one whole-frame _trace_rows
+    by the image criterion (ties in a tile may fall either way)."""
+    device = _card()
+    scene = build_test_scene(3, device=device)[1]
+    config = RenderConfig(width=128, height=64, max_bounce=2,
+                          cast_backend=tracer)
+    camera = Camera.make(aspect=2.0, device=device)
+    res = row_balance.block_seconds(scene, camera, config, blocks=4,
+                                    repeats=2, keep=True)
+    own, other = (("sweep", "cluster_intersect") if tracer == "sweep"
+                  else ("cluster_intersect", "sweep"))
+    assert all(n > 0 for n in res["launches"][own])
+    assert res["launches"][other] == [0] * 4
+    assert res["plain_calls"] == [0] * 4
+    assert all(ms > 0 for ms in res["kernel_ms"])
+    with torch.no_grad():
+        whole = _trace_rows(scene, camera, 1, config, 0, 64, 131072)
+    held, rel_mean, off = bench.images_agree(res["radiance"].cpu().numpy(),
+                                             whole.cpu().numpy())
+    assert held, (rel_mean, off)
