@@ -8,8 +8,9 @@ when torch sees no CUDA device, and when anything below fails:
 
  1. device: the card's name and power limit (nvidia-smi);
  2. build: nvcc compiles every source of csrc/ (sweep.cu, the span-sweep
-    kernel K1; cluster_intersect.cu, the cluster-intersect kernel K2; the
-    four probe kernels probe_copy, probe_gather, probe_smem (with the
+    kernel K1; sweep_prep.cu, K1's preparation kernels sweep_key and
+    sweep_spans; cluster_intersect.cu, the cluster-intersect kernel K2;
+    the four probe kernels probe_copy, probe_gather, probe_smem (with the
     empty launch-floor kernel), probe_stream),
     all started together;
  3. K1 against its plain version on the card, at the main path's shapes:
@@ -26,7 +27,12 @@ when torch sees no CUDA device, and when anything below fails:
     cut to T = 302, and a 20,482-triangle scene in blocks of 4,096 cast at
     a 128x64 grid of the frame, each equal to sweep_plain (every hit and
     triangle, t to 1e-6 relative), with its bound and microseconds per
-    span of the longest walk;
+    span of the longest walk; then K1's preparation kernels (sweep_key,
+    sweep_spans) against their plain versions, every output equal
+    (torch.equal), on a 131,072-ray primary cast, the first bounce's
+    merged pair, the bounce-4 pair, and the primary cast and pair on the
+    blocks of 512 and 1,024, each timed beside its plain version, the
+    stable torch.sort of the keys and its bound;
  4. K2 against its plain version at the schedule path's shapes: the same
     primary batch and the first bounce's bounce cast, with spans / nspan
     from the tracer's real votes; every round's launch is compared, the
@@ -38,7 +44,8 @@ when torch sees no CUDA device, and when anything below fails:
  5. the default render: render_progressive at 1024x512, 8 bounces, BSDF,
     HDR environment + MIS, tear-glass sphere, 1024x512 procedural HDR,
     sweep tracer; one warm-up pass and two timed passes, each fenced by a
-    host copy; K1 must be launched and its plain version never called;
+    host copy; K1 and both preparation kernels must be launched and their
+    plain versions never called;
  6. card against CPU: render_radiance at 128x64, 2 spp, 8 bounces, on the
     card (kernel) and on the CPU (plain version), held to the hardware
     lane's image criterion (tests/test_tpu.py:57-60);
@@ -151,7 +158,9 @@ once) over the HBM rate (NVIDIA's H100 SXM data sheet: 67 TFLOP/s FP32,
 its bound is the card's launch floor measured in the same run (an empty
 one-CTA kernel), "launch", where that is the larger. Neither K1 nor K2 has
 one PyTorch call that computes the same
-function, so their library_ms is null, as is the chained lookups'; the
+function, so their library_ms is null, as are the chained lookups' and
+the preparation kernels' (torch.sort, the one library call inside their
+function, is timed alone beside them); the
 other probe kernels have one each (an add of a slice, index_select,
 embedding_bag), timed here and used nowhere in the port. The kernels line
 has one entry per kernel: csrc/probe_gather.cu holds two, the gather
@@ -187,8 +196,9 @@ WIDEST_GRID = (128, 64)
 PEAK_HBM_BYTES = 3.35e12    # H100 SXM, HBM3
 CLI_RAYS_PER_TILE = 131072  # the CLI's default --rays-per-tile
 RANKS_TIMEOUT_S = 600       # a spawned group that takes longer fails
+PREP_RAYS = 131072          # the preparation kernels' primary cast
 PORT = "opengl_ray_tracing_framework_tpu_torch"
-EXPECTED_KERNELS = {"sweep", "cluster_intersect", "probe_copy",
+EXPECTED_KERNELS = {"sweep", "sweep_prep", "cluster_intersect", "probe_copy",
                     "probe_gather", "probe_smem", "probe_stream"}
 
 
@@ -1263,9 +1273,9 @@ def main() -> int:
 
     # the first ray tile of the frame, in the renderer's 32x32-block order
     n_pix = WIDTH * HEIGHT
-    pixel_id = torch.arange(n_pix, device=dev).reshape(
+    frame_order = torch.arange(n_pix, device=dev).reshape(
         HEIGHT // 32, 32, WIDTH // 32, 32).permute(0, 2, 1, 3).reshape(-1)
-    pixel_id = pixel_id[:RAYS_PER_TILE]
+    pixel_id = frame_order[:RAYS_PER_TILE]
     u = ((pixel_id % WIDTH).float() + 0.5) / WIDTH
     v = ((pixel_id // WIDTH).float() + 0.5) / HEIGHT
     origin, direction = camera.generate_rays(u, v)
@@ -1426,6 +1436,76 @@ def main() -> int:
         print(f"K1 {name}: {k1[name]['us_per_span']:.2f} us per span of a "
               f"tile's walk ({staging.SPAN_WALK} spans each)")
 
+    # K1's preparation kernels against their plain versions, every output
+    # equal, at the main path's shapes
+    prep = {"sweep_key": {}, "sweep_spans": {}}
+    prep_pid = frame_order[:PREP_RAYS]
+    prep_o, prep_d = camera.generate_rays(
+        ((prep_pid % WIDTH).float() + 0.5) / WIDTH,
+        ((prep_pid // WIDTH).float() + 0.5) / HEIGHT)
+    prep_ones = torch.ones(PREP_RAYS, dtype=torch.bool, device=dev)
+    prep_primary = (prep_o, prep_d, prep_ones, torch.zeros_like(prep_ones))
+
+    def prep_case(name, sc, rays):
+        """Hold sweep_key and sweep_spans against sweep_key_plain and
+        sweep_spans_plain on one cast's rays, padded as sweep_inputs pads
+        them; time each beside its plain version and print the line."""
+        o, d, m, a = sw.pad_cast(*rays)
+        lo, hi = sc.cl_aabb_min, sc.cl_aabb_max
+        key = sw.sweep_key(o, d, m, lo, hi)
+        perm = torch.sort(key, stable=True).indices
+        got = (key, *sw.sweep_spans(o, d, m, a, perm, lo, hi))
+        want = (sw.sweep_key_plain(o, d, m, lo, hi),
+                *sw.sweep_spans_plain(o, d, m, a, perm, lo, hi))
+        torch.cuda.synchronize()
+        err = 0.0
+        for label, g, w in zip(("key", "nspan", "spans", "tile_sorted",
+                                "rayfeat", "best"), got, want):
+            if g.dtype != w.dtype or not torch.equal(g, w):
+                fail(f"prep {name}: {label} differs from the plain version "
+                     f"in {int((g != w).sum())} of {w.numel()} entries")
+            err = max(err, (g.double() - w.double()).abs().max().item())
+        r, c, live = o.shape[0], lo.shape[0], int(m.sum())
+        g_tiles = r // sw.TILE_R
+        key_bytes = r * (24 + 1 + 8) + c * 24
+        spans_bytes = (r * (24 + 2 + 8) + c * 24 + g_tiles * 4
+                       + g_tiles * c * 8 + r * (16 + 8) * 4)
+        times = {
+            "sweep_key": (
+                cuda_ms(lambda: sw.sweep_key(o, d, m, lo, hi)),
+                cuda_ms(lambda: sw.sweep_key_plain(o, d, m, lo, hi),
+                        repeats=2),
+                probes.prep_bound(live * c, key_bytes)),
+            "sweep_spans": (
+                cuda_ms(lambda: sw.sweep_spans(o, d, m, a, perm, lo, hi)),
+                cuda_ms(lambda: sw.sweep_spans_plain(o, d, m, a, perm, lo,
+                                                     hi), repeats=2),
+                probes.prep_bound(live * c, spans_bytes))}
+        sort_ms = cuda_ms(lambda: torch.sort(key, stable=True))
+        parts = []
+        for kname, (ms, plain_ms, bound) in times.items():
+            prep[kname][name] = dict(err=err, ms=ms, plain_ms=plain_ms,
+                                     bound=bound)
+            parts.append(f"{kname} {ms:.4f} ms, plain {plain_ms:.3f} ms, "
+                         f"bound {bound[0]:.4f} ms by {bound[1]} (operations "
+                         f"{bound[2]:.4f} ms, bytes {bound[3]:.4f} ms)")
+        print(f"prep {name}: {r} rays ({live} live), {c} clusters, "
+              f"{g_tiles} tiles, spans/tile mean "
+              f"{got[1].float().mean().item():.1f} | every output equal | "
+              + " | ".join(parts) + f" | torch.sort of the keys "
+              f"{sort_ms:.4f} ms")
+
+    for name, sc, rays in (
+            ("primary", scene, prep_primary),
+            ("pair", scene, merged(captured[0])),
+            (f"deep pair (bounce {DEEP_BOUNCE - 1})", scene,
+             merged(captured[-1])),
+            *((f"{cast}, T {t_wide}", wide_scenes[t_wide], rays)
+              for t_wide in WIDE_T
+              for cast, rays in (("primary", prep_primary),
+                                 ("pair", merged(captured[0]))))):
+        prep_case(name, sc, rays)
+
     # 4. K2 vs plain at the schedule path's shapes: every round of the
     # primary cast and of the first bounce's bounce cast is compared; the
     # first round and the round with the most elected spans are timed
@@ -1565,12 +1645,17 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     sw.sweep.launches = 0
     sw.sweep_plain.calls = 0
+    sw.sweep_key.launches = sw.sweep_spans.launches = 0
+    sw.sweep_key_plain.calls = sw.sweep_spans_plain.calls = 0
     ci.cluster_intersect.launches = 0
     ci.cluster_intersect_plain.calls = 0
     first_passes = []   # phase 14 holds the sharded passes against them
     img, pass_s = timed_passes(ortf, scene, camera, config, 3,
                                keep=first_passes)
     k1_launches, plain_calls = sw.sweep.launches, sw.sweep_plain.calls
+    prep_launches = {"sweep_key": sw.sweep_key.launches,
+                     "sweep_spans": sw.sweep_spans.launches}
+    prep_plain = (sw.sweep_key_plain.calls, sw.sweep_spans_plain.calls)
     timed = pass_s[1:]
     mean_s = sum(timed) / len(timed)
     peak = torch.cuda.max_memory_allocated()
@@ -1580,11 +1665,20 @@ def main() -> int:
           f"{', '.join(f'{s:.3f}' for s in timed)} s, mean {mean_s:.3f} s | "
           f"{rays / mean_s:,.0f} rays/s | peak {peak / 2**30:.2f} GiB | K1 "
           f"launches {k1_launches} ({k1_launches // 3} per pass), plain "
-          f"calls {plain_calls} | image mean {mean:.4f}")
+          f"calls {plain_calls} | sweep_key / sweep_spans launches "
+          f"{prep_launches['sweep_key']} / {prep_launches['sweep_spans']} "
+          f"({prep_launches['sweep_key'] // 3} / "
+          f"{prep_launches['sweep_spans'] // 3} per pass), plain calls "
+          f"{prep_plain[0]} / {prep_plain[1]} | image mean {mean:.4f}")
     if k1_launches <= 0:
         fail("the render launched no sweep kernel")
     if plain_calls != 0:
         fail(f"the render called the plain sweep {plain_calls} times")
+    if min(prep_launches.values()) <= 0:
+        fail(f"the render launched the preparation kernels {prep_launches}")
+    if prep_plain != (0, 0):
+        fail(f"the render called sweep_key_plain / sweep_spans_plain "
+             f"{prep_plain} times")
     if ci.cluster_intersect.launches or ci.cluster_intersect_plain.calls:
         fail("the sweep render reached the cluster-intersect kernel")
     if args.png:
@@ -1713,11 +1807,12 @@ def main() -> int:
     print(f"chip_smoke: every phase passed in "
           f"{time.perf_counter() - t_start:.1f} s")
 
-    def entry(name, replaces, launches, cases, main_case):
+    def entry(name, replaces, launches, cases, main_case, source=None):
         c = cases[main_case]
         return {
             "name": name, "route": "cuda",
-            "source": f"{PORT}/csrc/{name}.cu", "replaces": replaces,
+            "source": f"{PORT}/csrc/{source or name}.cu",
+            "replaces": replaces,
             "launches": launches,
             "max_abs_err": max(x["err"] for x in cases.values()),
             "ms": c["ms"], "plain_ms": c["plain_ms"],
@@ -1727,6 +1822,13 @@ def main() -> int:
     print(json.dumps({"kernels": [
         entry("sweep", "opengl_ray_tracing_framework_tpu/ops/sweep.py:104",
               k1_launches, k1, "pair"),
+        entry("sweep_key", "opengl_ray_tracing_framework_tpu/ops/sweep.py:286",
+              prep_launches["sweep_key"], prep["sweep_key"], "pair",
+              source="sweep_prep"),
+        entry("sweep_spans",
+              "opengl_ray_tracing_framework_tpu/ops/sweep.py:299",
+              prep_launches["sweep_spans"], prep["sweep_spans"], "pair",
+              source="sweep_prep"),
         entry("cluster_intersect",
               "opengl_ray_tracing_framework_tpu/ops/intersect_pallas.py:66",
               k2_launches, k2, k2_main),

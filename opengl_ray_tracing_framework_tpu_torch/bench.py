@@ -185,9 +185,11 @@ def power_limit(device) -> str | None:
 
 
 def counts() -> tuple[int, int, int]:
-    """(K1 launches, K2 launches, calls of their plain versions) so far."""
+    """(K1 launches, K2 launches, calls of the plain versions of K1, K2 and
+    K1's preparation kernels) so far."""
     return (sw.sweep.launches, ci.cluster_intersect.launches,
-            sw.sweep_plain.calls + ci.cluster_intersect_plain.calls)
+            sw.sweep_plain.calls + ci.cluster_intersect_plain.calls
+            + sw.sweep_key_plain.calls + sw.sweep_spans_plain.calls)
 
 
 def _peak_reset(device):

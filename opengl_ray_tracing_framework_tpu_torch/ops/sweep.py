@@ -4,19 +4,22 @@ PyTorch port of opengl_ray_tracing_framework_tpu.ops.sweep. Every cast of
 the forward render (the primary cast and each bounce's merged NEE-shadow
 + bounce cast) comes here.
 
-  host preparation (plain torch, as the JAX module's jnp):
+  preparation (sweep_inputs; csrc/sweep_prep.cu on a CUDA tensor, the
+  plain versions sweep_key_plain / sweep_spans_plain on a CPU tensor):
     1. slab test of every ray against every cluster AABB (cluster_tnear),
-       consumed only through per-ray and per-tile reductions, in chunks
-       of rays so the (rays, clusters) matrix never exists whole;
-    2. a stable coherence sort of the rays (_sort_key): rays that trace
-       nothing (masked off, or overlapping no cluster) go last, live rays
-       group by (nearest candidate cluster, quantized direction);
-    3. per tile of TILE_R sorted rays, the span list: cluster ids in
-       stable ascending order of the tile's minimum entry distance, and
-       nspan = the number the tile overlaps;
+       consumed only through per-ray and per-tile reductions, so the
+       (rays, clusters) matrix never exists whole (the plain versions take
+       it in chunks of rays);
+    2. a stable coherence sort of the rays (sweep_key, then torch.sort):
+       rays that trace nothing (masked off, or overlapping no cluster) go
+       last, live rays group by (nearest candidate cluster, quantized
+       direction);
+    3. per tile of TILE_R sorted rays, the span list (sweep_spans): cluster
+       ids in stable ascending order of the tile's minimum entry distance,
+       and nspan = the number the tile overlaps;
     4. per ray, the pruning cap = nextafter(its farthest finite entry
        distance): a ray never needs a span beyond its own farthest
-       candidate cluster.
+       candidate cluster; with the ray features and the records.
 
   kernel (sweep: csrc/sweep.cu on a CUDA tensor, a thread-block cluster
   of 1-8 CTAs per tile by the launch's tile count; sweep_plain on a CPU
@@ -51,6 +54,8 @@ BEST_W = 8            # record [t, slot, inside, cap, anyhit, 0, 0, 0]
 EPS_ROW = 10          # trifeat row carrying E in the A-group columns
 MAX_BLOCK_TRIS = 4096  # widest cluster block the kernels take (a 12-bit
                        # lane in their keys); csrc/mt_span.cuh agrees
+MAX_CLUSTERS = 8192   # most clusters sweep_spans sorts in shared memory;
+                      # csrc/sweep_prep.cu agrees
 _DEAD_KEY = 1 << 30   # sort key for rays that trace nothing
 _SLAB_CHUNK = 128 * TILE_R   # rays per slab-test chunk
 
@@ -60,7 +65,9 @@ def cluster_tnear(origin, direction, cl_min, cl_max):
 
     Returns (R, C) float32: max(t_enter, 0) where the slab test passes
     (hitAABB semantics, glsl:303-316: visit iff t1 >= t0 and t1 > 0), INF
-    where it misses (schedule.py::cluster_tnear in the JAX package).
+    where it misses (schedule.py::cluster_tnear in the JAX package). An
+    entry of -0.0 becomes +0.0, so a sort of these distances on the card
+    (a radix sort of their bits) sees the ties that the CPU's sees.
     """
     small = torch.abs(direction) < 1e-12
     signed_eps = torch.where(direction < 0, -1e-12, 1e-12).to(direction.dtype)
@@ -74,7 +81,8 @@ def cluster_tnear(origin, direction, cl_min, cl_max):
         t0 = torch.maximum(t0, torch.minimum(near, far))
         t1 = torch.minimum(t1, torch.maximum(near, far))
     visit = (t1 >= t0) & (t1 > 0.0)
-    return torch.where(visit, torch.clamp(t0, min=0.0), INF)
+    return torch.where(visit & (t0 > 0.0), t0,
+                       torch.where(visit, 0.0, INF))
 
 
 def ray_features(origin, direction):
@@ -284,50 +292,244 @@ nvcc.register("sweep", _declare, _smoke)
 
 
 # ---------------------------------------------------------------------------
+# The preparation: hand-written CUDA on the card, plain torch on the CPU
+# ---------------------------------------------------------------------------
+
+
+def sweep_key_plain(origin, direction, mask, cl_min, cl_max):
+    """Plain PyTorch version of csrc/sweep_prep.cu's sweep_key: the
+    coherence key (R,) int64 of each ray (_sort_key) from the slab test,
+    in chunks of _SLAB_CHUNK rays."""
+    sweep_key_plain.calls += 1
+    return torch.cat([
+        _sort_key(tn, direction[sl], mask[sl])
+        for sl, tn in _chunked_tnear(origin, direction, mask, cl_min,
+                                     cl_max)])
+
+
+sweep_key_plain.calls = 0
+
+
+def sweep_spans_plain(origin, direction, mask, anyhit, perm, cl_min,
+                      cl_max):
+    """Plain PyTorch version of csrc/sweep_prep.cu's sweep_spans.
+
+    origin, direction (R, 3) f32, mask, anyhit (R,) bool, R a multiple of
+    TILE_R; perm (R,) int64, the kernel order of the rays (None: their
+    order); cl_min, cl_max (C, 3) f32. Returns the sweep kernel's arguments
+    but trifeat: nspan (G,) i32, spans (G, C) i32 cluster ids nearest
+    first (a stable sort of the tile minima), tile_sorted (G, C) f32 their
+    tile entry distances, rayfeat (R, 16) f32 and best (R, 8) f32 records
+    [INF or -INF (masked), -1, 0, cap, anyhit, 0, 0, 0], all in kernel
+    order."""
+    sweep_spans_plain.calls += 1
+    if perm is not None:
+        origin, direction = origin[perm], direction[perm]
+        mask, anyhit = mask[perm], anyhit[perm]
+    tile_tn, cap = _span_lists(origin, direction, mask, cl_min, cl_max)
+    tile_sorted, order = torch.sort(tile_tn, dim=1, stable=True)
+    nspan = torch.sum(tile_sorted < INF, dim=1, dtype=torch.int32)
+    best = torch.zeros((origin.shape[0], BEST_W), dtype=torch.float32,
+                       device=origin.device)
+    best[:, 0] = torch.where(mask, INF, -INF)   # masked rays never update
+    best[:, 1] = -1.0
+    best[:, 3] = cap
+    best[:, 4] = anyhit.float()
+    return (nspan, order.to(torch.int32), tile_sorted.contiguous(),
+            ray_features(origin, direction), best)
+
+
+sweep_spans_plain.calls = 0
+
+
+def _declare_prep(lib):
+    """Declare the C signatures of a loaded csrc/sweep_prep.cu."""
+    lib.sweep_prep_tile_rays.argtypes = []
+    lib.sweep_prep_tile_rays.restype = ctypes.c_int
+    lib.sweep_prep_max_clusters.argtypes = []
+    lib.sweep_prep_max_clusters.restype = ctypes.c_int
+    lib.sweep_key_launch.argtypes = ([ctypes.c_void_p] * 6
+                                     + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+    lib.sweep_key_launch.restype = ctypes.c_int
+    lib.sweep_spans_launch.argtypes = ([ctypes.c_void_p] * 12
+                                       + [ctypes.c_int] * 2
+                                       + [ctypes.c_void_p])
+    lib.sweep_spans_launch.restype = ctypes.c_int
+    if lib.sweep_prep_tile_rays() != TILE_R:
+        raise RuntimeError(
+            "csrc/sweep_prep.cu TILE_R differs from ops/sweep.py")
+    if lib.sweep_prep_max_clusters() != MAX_CLUSTERS:
+        raise RuntimeError(
+            "csrc/sweep_prep.cu MAX_CLUSTERS differs from ops/sweep.py")
+    return lib
+
+
+def _check_prep(fn, dev, tensors):
+    """Raise ValueError unless every (name, tensor, dtype, shape) is a
+    contiguous tensor of that type and shape on dev."""
+    for name, x, dtype, shape in tensors:
+        if (x.device != dev or x.dtype != dtype
+                or tuple(x.shape) != tuple(shape) or not x.is_contiguous()):
+            raise ValueError(
+                f"{fn}: {name} must be a contiguous {dtype} tensor of shape "
+                f"{tuple(shape)} on {dev}; got {x.dtype} {tuple(x.shape)} "
+                f"on {x.device}")
+
+
+def _launch_prep(fn, dev, call):
+    with torch.cuda.device(dev):
+        rc = call(torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{fn} kernel launch failed: cudaError {rc}")
+
+
+def _prep_device(fn, origin, cl_min):
+    """The device of a preparation call: 'cpu' (the plain version) or a
+    CUDA device whose cluster count the kernel takes."""
+    dev = origin.device
+    if dev.type == "cpu":
+        return dev
+    if dev.type != "cuda":
+        raise NotImplementedError(f"the {fn} kernel has no {dev} version")
+    c = cl_min.shape[0]
+    if not 1 <= c <= MAX_CLUSTERS:
+        raise ValueError(f"{fn}: {c} clusters; the kernel takes 1 to "
+                         f"{MAX_CLUSTERS}")
+    return dev
+
+
+def sweep_key(origin, direction, mask, cl_min, cl_max):
+    """The coherence key of each ray: csrc/sweep_prep.cu's sweep_key on a
+    CUDA tensor (up to MAX_CLUSTERS clusters; ValueError beyond),
+    sweep_key_plain on a CPU tensor; the same (R,) int64 values.
+    `sweep_key.launches` counts kernel launches."""
+    dev = _prep_device("sweep_key", origin, cl_min)
+    if dev.type == "cpu":
+        return sweep_key_plain(origin, direction, mask, cl_min, cl_max)
+    r, c = origin.shape[0], cl_min.shape[0]
+    _check_prep("sweep_key", dev, (
+        ("origin", origin, torch.float32, (r, 3)),
+        ("direction", direction, torch.float32, (r, 3)),
+        ("mask", mask, torch.bool, (r,)),
+        ("cl_min", cl_min, torch.float32, (c, 3)),
+        ("cl_max", cl_max, torch.float32, (c, 3))))
+    key = torch.empty(r, dtype=torch.int64, device=dev)
+    lib = nvcc.load("sweep_prep")
+    _launch_prep("sweep_key", dev, lambda stream: lib.sweep_key_launch(
+        origin.data_ptr(), direction.data_ptr(), mask.data_ptr(),
+        cl_min.data_ptr(), cl_max.data_ptr(), key.data_ptr(), r, c, stream))
+    sweep_key.launches += 1
+    return key
+
+
+sweep_key.launches = 0
+
+
+def sweep_spans(origin, direction, mask, anyhit, perm, cl_min, cl_max):
+    """Span lists, ray features and records of rays in kernel order:
+    csrc/sweep_prep.cu's sweep_spans on a CUDA tensor (up to MAX_CLUSTERS
+    clusters; ValueError beyond), sweep_spans_plain on a CPU tensor; same
+    contract and values. `sweep_spans.launches` counts kernel launches."""
+    dev = _prep_device("sweep_spans", origin, cl_min)
+    if dev.type == "cpu":
+        return sweep_spans_plain(origin, direction, mask, anyhit, perm,
+                                 cl_min, cl_max)
+    r, c = origin.shape[0], cl_min.shape[0]
+    if r % TILE_R:
+        raise ValueError(f"sweep_spans: {r} rays, not a multiple of "
+                         f"{TILE_R}")
+    g = r // TILE_R
+    _check_prep("sweep_spans", dev, (
+        ("origin", origin, torch.float32, (r, 3)),
+        ("direction", direction, torch.float32, (r, 3)),
+        ("mask", mask, torch.bool, (r,)),
+        ("anyhit", anyhit, torch.bool, (r,)),
+        *((("perm", perm, torch.int64, (r,)),) if perm is not None else ()),
+        ("cl_min", cl_min, torch.float32, (c, 3)),
+        ("cl_max", cl_max, torch.float32, (c, 3))))
+    nspan = torch.empty(g, dtype=torch.int32, device=dev)
+    spans = torch.empty((g, c), dtype=torch.int32, device=dev)
+    tile_sorted = torch.empty((g, c), dtype=torch.float32, device=dev)
+    rayfeat = torch.empty((r, N_FEAT), dtype=torch.float32, device=dev)
+    best = torch.empty((r, BEST_W), dtype=torch.float32, device=dev)
+    lib = nvcc.load("sweep_prep")
+    _launch_prep("sweep_spans", dev, lambda stream: lib.sweep_spans_launch(
+        origin.data_ptr(), direction.data_ptr(), mask.data_ptr(),
+        anyhit.data_ptr(), None if perm is None else perm.data_ptr(),
+        cl_min.data_ptr(), cl_max.data_ptr(), nspan.data_ptr(),
+        spans.data_ptr(), tile_sorted.data_ptr(), rayfeat.data_ptr(),
+        best.data_ptr(), g, c, stream))
+    sweep_spans.launches += 1
+    return nspan, spans, tile_sorted, rayfeat, best
+
+
+sweep_spans.launches = 0
+
+
+def _smoke_prep(device):
+    """Two tiles of rays against three clusters: the key, its sort and
+    the span lists, as one flat float tensor."""
+    gen = torch.Generator(device="cpu").manual_seed(0)
+    r = 2 * TILE_R
+    origin = (torch.rand((r, 3), generator=gen) * 4 - 2).to(device)
+    direction = torch.nn.functional.normalize(
+        torch.rand((r, 3), generator=gen) - 0.5, dim=1).to(device)
+    mask = (torch.rand(r, generator=gen) < 0.9).to(device)
+    anyhit = torch.zeros(r, dtype=torch.bool, device=device)
+    cl_min = torch.tensor([[-1.0, -1.0, -1.0], [0.0, 0.0, 0.0],
+                           [-3.0, 1.0, -3.0]], device=device)
+    cl_max = cl_min + 1.5
+
+    def launch():
+        key = sweep_key(origin, direction, mask, cl_min, cl_max)
+        perm = torch.sort(key, stable=True).indices
+        out = sweep_spans(origin, direction, mask, anyhit, perm, cl_min,
+                          cl_max)
+        return torch.cat([key.float(), *(x.float().reshape(-1)
+                                         for x in out)])
+
+    return launch
+
+
+nvcc.register("sweep_prep", _declare_prep, _smoke_prep)
+
+
+# ---------------------------------------------------------------------------
 # Casts
 # ---------------------------------------------------------------------------
 
 
-def sweep_inputs(scene, origin, direction, mask, anyhit):
-    """Host preparation of one cast: the sweep kernel's arguments
-    (nspan, spans, tile_sorted, rayfeat, best, trifeat) for rays padded
-    to a multiple of TILE_R, and the sort permutation (None when the rays
-    fit one tile) that put them in kernel order."""
-    r_in = origin.shape[0]
-    dev = origin.device
-    pad = (-r_in) % TILE_R
+def pad_cast(origin, direction, mask, anyhit):
+    """A cast's rays padded to a multiple of TILE_R with masked rays
+    (origin 0, direction +z), as contiguous tensors."""
+    pad = (-origin.shape[0]) % TILE_R
     if pad:
         origin = torch.cat([origin, origin.new_zeros((pad, 3))])
         direction = torch.cat([direction, torch.tensor(
-            [[0.0, 0.0, 1.0]], device=dev).expand(pad, 3)])
+            [[0.0, 0.0, 1.0]], device=direction.device).expand(pad, 3)])
         mask = torch.cat([mask, mask.new_zeros(pad)])
         anyhit = torch.cat([anyhit, anyhit.new_zeros(pad)])
+    return (origin.contiguous(), direction.contiguous(), mask.contiguous(),
+            anyhit.contiguous())
+
+
+def sweep_inputs(scene, origin, direction, mask, anyhit):
+    """Preparation of one cast: the sweep kernel's arguments (nspan,
+    spans, tile_sorted, rayfeat, best, trifeat) for rays padded to a
+    multiple of TILE_R, and the sort permutation (None when the rays fit
+    one tile) that put them in kernel order. On a CUDA tensor two kernels
+    and one torch.sort; on a CPU tensor their plain versions."""
+    origin, direction, mask, anyhit = pad_cast(origin, direction, mask,
+                                               anyhit)
     r = origin.shape[0]
     cl_min, cl_max = scene.cl_aabb_min, scene.cl_aabb_max
 
     perm = None
     if r > TILE_R:
-        key = torch.cat([
-            _sort_key(tn, direction[sl], mask[sl])
-            for sl, tn in _chunked_tnear(origin, direction, mask,
-                                         cl_min, cl_max)])
+        key = sweep_key(origin, direction, mask, cl_min, cl_max)
         perm = torch.sort(key, stable=True).indices
-        origin, direction = origin[perm], direction[perm]
-        mask, anyhit = mask[perm], anyhit[perm]
-
-    tile_tn, cap = _span_lists(origin, direction, mask, cl_min, cl_max)
-    tile_sorted, order = torch.sort(tile_tn, dim=1, stable=True)
-    nspan = torch.sum(tile_sorted < INF, dim=1, dtype=torch.int32)
-
-    best = torch.zeros((r, BEST_W), dtype=torch.float32, device=dev)
-    best[:, 0] = torch.where(mask, INF, -INF)   # masked rays never update
-    best[:, 1] = -1.0
-    best[:, 3] = cap
-    best[:, 4] = anyhit.float()
-    args = (nspan, order.to(torch.int32), tile_sorted.contiguous(),
-            ray_features(origin, direction), best,
-            scene.cl_trifeat.contiguous())
-    return args, perm
+    args = sweep_spans(origin, direction, mask, anyhit, perm, cl_min, cl_max)
+    return (*args, scene.cl_trifeat.contiguous()), perm
 
 
 def _swept(scene, origin, direction, mask, anyhit) -> Hit:

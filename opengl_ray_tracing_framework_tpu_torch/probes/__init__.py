@@ -23,6 +23,9 @@ import torch
 PEAK_HBM_BYTES = 3.35e12   # H100 SXM HBM3, bytes/s (NVIDIA data sheet)
 PEAK_FP32_FLOPS = 67e12    # H100 SXM, FP32 outside the tensor cores
 FLOPS_PER_PAIR = 80        # 40 FMAs per ray x triangle (csrc/mt_span.cuh)
+SLAB_OPS = 27              # a ray x box slab test (csrc/sweep_prep.cu): per
+                           # axis 2 subtractions, 2 products, 4 min / max;
+                           # 2 comparisons and the clamp
 L2_BYTES = 50 * 2**20      # H100 SXM L2 cache
 N_SMS = 132                # H100 SXM streaming multiprocessors
 SMEM_OPTIN_BYTES = 227 * 1024   # H100 shared memory a block may opt in to
@@ -39,6 +42,17 @@ def span_bound(visits, clusters_read, t_blk, n_rays, index_bytes):
     nbytes = (clusters_read * 41 * t_blk * 4 + n_rays * (16 + 2 * 8) * 4
               + index_bytes)
     ops_ms = ops / PEAK_FP32_FLOPS * 1e3
+    bytes_ms = nbytes / PEAK_HBM_BYTES * 1e3
+    by = "operations" if ops_ms >= bytes_ms else "bytes"
+    return max(ops_ms, bytes_ms), by, ops_ms, bytes_ms
+
+
+def prep_bound(pairs, nbytes):
+    """(bound_ms, bound_by, ops_ms, bytes_ms) of a preparation kernel call
+    (csrc/sweep_prep.cu) whose function needs `pairs` slab tests of
+    SLAB_OPS FP32 operations, one per (live ray, cluster), and moves
+    `nbytes` (each input read once, each output written once)."""
+    ops_ms = pairs * SLAB_OPS / PEAK_FP32_FLOPS * 1e3
     bytes_ms = nbytes / PEAK_HBM_BYTES * 1e3
     by = "operations" if ops_ms >= bytes_ms else "bytes"
     return max(ops_ms, bytes_ms), by, ops_ms, bytes_ms

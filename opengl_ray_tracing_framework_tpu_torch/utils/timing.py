@@ -7,10 +7,11 @@ pass is timed on its own, at the true batch shape and with representative
 ray populations, out of the port's own functions:
 
   raygen          camera ray generation for one batch
-  sort            the sweep tracer's coherence sort per cast: the chunked
-                  slab test, _sort_key, a stable argsort, the gathers
-  tnear_spans     per 128-ray tile the span lists and per-ray caps
-                  (_span_lists) and their stable sort
+  sort            the sweep tracer's coherence sort per cast: the slab
+                  test and key (sweep_key) and a stable argsort
+  tnear_spans     per 128-ray tile of the sorted rays the span lists, the
+                  per-ray caps, ray features and records (sweep_spans,
+                  which gathers the rays in sorted order)
   primary_cast    coherent closest hit (camera rays)
   shadow_cast     incoherent any hit from hit points toward env samples
   bounce_cast     incoherent closest hit from hit points, hemisphere dirs
@@ -73,9 +74,9 @@ def pass_breakdown(scene, camera, config, rays_per_tile: int = 131072,
     from ..models.camera import pixel_uv
     from ..ops import disney
     from ..ops.envmap import env_radiance_pdf_nearest, env_sample_nearest
-    from ..ops.intersect import INF, surface_attributes
+    from ..ops.intersect import surface_attributes
     from ..ops.sampling import rand01
-    from ..ops.sweep import TILE_R, _chunked_tnear, _sort_key, _span_lists
+    from ..ops.sweep import TILE_R, sweep_key, sweep_spans
     from ..ops.traverse import closest_hit
     from ..render import init_render_state, render_pass
 
@@ -100,28 +101,23 @@ def pass_breakdown(scene, camera, config, rays_per_tile: int = 131072,
 
     stage("raygen", camera.generate_rays, uu, vv)
 
-    # the coherence sort the sweep tracer pays per cast (sweep_inputs)
-    def do_sort(o, d, mask):
-        key = torch.cat([_sort_key(tn, d[sl], mask[sl])
-                         for sl, tn in _chunked_tnear(o, d, mask, cl_min,
-                                                      cl_max)])
-        perm = torch.sort(key, stable=True).indices
-        return o[perm], d[perm], mask[perm]
-
-    stage("sort", do_sort, o, d, ones)
-
-    # span lists and caps per tile of TILE_R rays (rays cycled up to a
-    # whole number of tiles)
+    # the coherence sort and the span lists the sweep tracer pays per cast
+    # (sweep_inputs), on the rays cycled up to a whole number of tiles
     pad = torch.arange(math.ceil(r / TILE_R) * TILE_R, device=dev) % r
-    o_t, d_t, m_t = o[pad], d[pad], ones[pad]
+    o_t, d_t, m_t = o[pad].contiguous(), d[pad].contiguous(), ones[pad]
+    a_t = torch.zeros_like(m_t)
 
-    def do_spans(o, d, mask):
-        tile_tn, cap = _span_lists(o, d, mask, cl_min, cl_max)
-        tile_sorted, order = torch.sort(tile_tn, dim=1, stable=True)
-        nspan = torch.sum(tile_sorted < INF, dim=1, dtype=torch.int32)
-        return nspan, order, cap
+    def do_sort(o, d, mask):
+        key = sweep_key(o, d, mask, cl_min, cl_max)
+        return torch.sort(key, stable=True).indices
 
-    stage("tnear_spans", do_spans, o_t, d_t, m_t)
+    stage("sort", do_sort, o_t, d_t, m_t)
+    perm = do_sort(o_t, d_t, m_t)
+
+    def do_spans(o, d, mask, anyhit, perm):
+        return sweep_spans(o, d, mask, anyhit, perm, cl_min, cl_max)
+
+    stage("tnear_spans", do_spans, o_t, d_t, m_t, a_t, perm)
 
     # casts
     def cast(o, d, any_hit):

@@ -4,7 +4,12 @@ same inputs: the cluster kernels at every width of cluster block, K1
 cluster_intersect_plain for blocks of T = 256 (one bulk copy of the whole
 block), 512, 1,024 and 4,096 (chunks of a CTA's columns by tensor-map
 copies) and 302 (no multiple of 4: hand-copied chunks), and the refusal of
-a block wider than the kernels' 4,096; the chained lookups (K4c-2,
+a block wider than the kernels' 4,096; K1's preparation kernels
+(csrc/sweep_prep.cu: sweep_key, sweep_spans) against sweep_key_plain and
+sweep_spans_plain on every output, on the 81,922-triangle scene in
+blocks of 256, 512, 1,024 and 128 (C = 484, 243, 121 and one over a
+chunk of 512 boxes), and the refusal of more than MAX_CLUSTERS clusters;
+the chained lookups (K4c-2,
 csrc/probe_gather.cu) on tables whose columns differ and the block sums
 (K4c-3, csrc/probe_stream.cu) for one and many rows of starts, and the
 refusal of a table column over the shared-memory limit; the per-CTA copy
@@ -169,6 +174,94 @@ def test_blocks_beyond_the_limit_are_refused():
         tci.cluster_intersect(rayfeat, best, spans, one, trifeat)
     assert (tsweep.sweep_plain.calls,
             tci.cluster_intersect_plain.calls) == calls
+
+
+PREP_BLOCKS = [256, 512, 1024, 128]
+
+
+@pytest.fixture(scope="module")
+def loong_scale_scene():
+    """The 81,922-triangle scene of the main path (chip_smoke.py), built
+    on the host; each test cuts it into its own cluster blocks."""
+    return build_test_scene(6, device="cpu")[0]
+
+
+def _prep_cases(dev, seed):
+    """(rays, masked share, any-hit share): a full primary batch, a
+    merged-pair-sized one with masked lanes, mixed any-hit flags and a
+    ragged count (padded), one tile (no sort), and a small ragged one."""
+    for n, masked, anyhit_share in ((131072, 0.0, 0.0),
+                                    (131072 - 37, 0.3, 0.5),
+                                    (100, 0.2, 0.5), (5000, 0.5, 0.3)):
+        o, d = _rays(n, seed + n, dev)
+        gen = torch.Generator(device=dev).manual_seed(seed + n)
+        mask = torch.rand(n, generator=gen, device=dev) >= masked
+        anyhit = torch.rand(n, generator=gen, device=dev) < anyhit_share
+        yield n, tsweep.pad_cast(o, d, mask, anyhit)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t_blk", PREP_BLOCKS)
+def test_prep_kernels_equal_plain(t_blk, loong_scale_scene):
+    """sweep_key and sweep_spans equal their plain versions on every
+    output (torch.equal: the same values, -0.0 equal to +0.0), and
+    sweep_inputs on the card launches both and calls neither plain
+    version."""
+    dev = _card()
+    scene = loong_scale_scene.build(cluster_size=t_blk, device=dev)
+    lo, hi = scene.cl_aabb_min, scene.cl_aabb_max
+    assert lo.shape[0] == {256: 484, 512: 243, 1024: 121}.get(
+        t_blk, lo.shape[0]) and (t_blk != 128 or lo.shape[0] > 512)
+    for n, (o, d, mask, anyhit) in _prep_cases(dev, t_blk):
+        label = f"T {t_blk}, {lo.shape[0]} clusters, {n} rays"
+        key = tsweep.sweep_key(o, d, mask, lo, hi)
+        want = tsweep.sweep_key_plain(o, d, mask, lo, hi)
+        torch.cuda.synchronize()
+        assert torch.equal(key, want), \
+            f"{label}: key differs on {int((key != want).sum())} rays"
+        perms = [torch.sort(key, stable=True).indices]
+        if n <= tsweep.TILE_R:
+            perms.append(None)
+        for perm in perms:
+            got = tsweep.sweep_spans(o, d, mask, anyhit, perm, lo, hi)
+            want = tsweep.sweep_spans_plain(o, d, mask, anyhit, perm, lo, hi)
+            torch.cuda.synchronize()
+            for name, g, w in zip(("nspan", "spans", "tile_sorted",
+                                   "rayfeat", "best"), got, want):
+                assert g.shape == w.shape and g.dtype == w.dtype, name
+                assert torch.equal(g, w), (
+                    f"{label}, perm {perm is not None}: {name} differs in "
+                    f"{int((g != w).sum())} entries")
+        launched = (tsweep.sweep_key.launches, tsweep.sweep_spans.launches)
+        calls = (tsweep.sweep_key_plain.calls, tsweep.sweep_spans_plain.calls)
+        tsweep.sweep_inputs(scene, o, d, mask, anyhit)
+        sort = o.shape[0] > tsweep.TILE_R
+        assert (tsweep.sweep_key.launches, tsweep.sweep_spans.launches) \
+            == (launched[0] + sort, launched[1] + 1)
+        assert (tsweep.sweep_key_plain.calls,
+                tsweep.sweep_spans_plain.calls) == calls
+
+
+@pytest.mark.cuda
+def test_prep_clusters_beyond_the_limit_are_refused():
+    dev = _card()
+    c = tsweep.MAX_CLUSTERS + 1
+    lo = torch.zeros((c, 3), device=dev)
+    o, d = _rays(256, 1, dev)
+    mask = torch.ones(256, dtype=torch.bool, device=dev)
+    calls = tsweep.sweep_key_plain.calls, tsweep.sweep_spans_plain.calls
+    with pytest.raises(ValueError, match=str(tsweep.MAX_CLUSTERS)):
+        tsweep.sweep_key(o, d, mask, lo, lo + 1)
+    with pytest.raises(ValueError, match=str(tsweep.MAX_CLUSTERS)):
+        tsweep.sweep_spans(o, d, mask, ~mask, None, lo, lo + 1)
+    assert (tsweep.sweep_key_plain.calls,
+            tsweep.sweep_spans_plain.calls) == calls
+    # the largest count it takes: every output equal to the plain version
+    lo = lo[:-1] + torch.arange(c - 1, device=dev)[:, None] * 1e-3
+    got = tsweep.sweep_spans(o, d, mask, ~mask, None, lo, lo + 1)
+    want = tsweep.sweep_spans_plain(o, d, mask, ~mask, None, lo, lo + 1)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
 
 
 @pytest.mark.cuda

@@ -12,12 +12,15 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from opengl_ray_tracing_framework_tpu.models.scene import (
     build_test_scene as jax_build_test_scene)
 from opengl_ray_tracing_framework_tpu.ops import sweep as jsweep
 from opengl_ray_tracing_framework_tpu.ops.intersect import closest_hit_brute
+from opengl_ray_tracing_framework_tpu.ops.intersect_pallas import (
+    ray_features as jax_ray_features)
 from opengl_ray_tracing_framework_tpu.ops.schedule import (
     cluster_tnear as jax_cluster_tnear)
 from opengl_ray_tracing_framework_tpu.utils.config import RenderConfig
@@ -215,3 +218,95 @@ def test_cpu_tensors_take_the_plain_version(scenes):
     oracle = tint.closest_hit_brute(torch.as_tensor(o), torch.as_tensor(d),
                                     tdata.p1, tdata.p2, tdata.p3)
     assert_hits_agree(hit, oracle)
+
+
+def _jax_prep(jdata, o, d, mask, anyhit):
+    """JAX's own steps of ops/sweep.py::_swept_impl (:286-322) on rays
+    padded to a whole number of 128-ray tiles as the port pads them: the
+    slab test, _sort_key and the stable lax.sort (R > 128 only), the
+    second slab test on the sorted rays, the per-tile minimum and the
+    stable argsort, nspan, the cap, the ray features and the records."""
+    tile = tsweep.TILE_R
+    pad = (-o.shape[0]) % tile
+    o = np.concatenate([o, np.zeros((pad, 3), np.float32)])
+    d = np.concatenate([d, np.tile(np.float32([[0, 0, 1]]), (pad, 1))])
+    mask = np.concatenate([mask, np.zeros(pad, bool)])
+    anyhit = np.concatenate([anyhit, np.zeros(pad, bool)])
+    padded = tuple(torch.as_tensor(x) for x in (o, d, mask))
+    o, d, mask, anyhit = map(jnp.asarray, (o, d, mask, anyhit))
+    r, c = o.shape[0], jdata.cl_aabb_min.shape[0]
+
+    def masked_tn(o, d, mask):
+        tn = jax_cluster_tnear(o, d, jdata.cl_aabb_min, jdata.cl_aabb_max)
+        return jnp.where(mask[:, None], tn, INF)
+
+    key = perm = None
+    tn = masked_tn(o, d, mask)
+    if r > tile:
+        key = jsweep._sort_key(tn, d, mask)
+        perm = jax.lax.sort((key, jnp.arange(r, dtype=jnp.int32)),
+                            num_keys=1)[1]
+        o, d, mask, anyhit = o[perm], d[perm], mask[perm], anyhit[perm]
+        tn = masked_tn(o, d, mask)
+    tile_tn = tn.reshape(r // tile, tile, c).min(axis=1)
+    order = jnp.argsort(tile_tn, axis=1)
+    tile_sorted = jnp.take_along_axis(tile_tn, order, axis=1)
+    nspan = jnp.sum(tile_sorted < INF, axis=1)
+    cap = jnp.nextafter(jnp.max(jnp.where(tn < INF, tn, -INF), axis=1), INF)
+    best = jnp.zeros((r, 8), jnp.float32)
+    best = best.at[:, 0].set(jnp.where(mask, INF, -INF)).at[:, 1].set(-1.0)
+    best = best.at[:, 3].set(cap).at[:, 4].set(anyhit.astype(jnp.float32))
+    return key, perm, dict(
+        nspan=nspan, spans=order, tile_sorted=tile_sorted,
+        rayfeat=jax_ray_features(o, d), best=best), padded
+
+
+@pytest.mark.parametrize("fixture", ["scenes", "many_cluster_scenes"])
+@pytest.mark.parametrize("n_rays,masked", [(1000, 0.3), (100, 0.2),
+                                           (768, 0.0)])
+def test_sweep_inputs_equal_jax_swept_impl_steps(fixture, n_rays, masked,
+                                                 request):
+    """On the CPU, sweep_inputs (the plain versions of the preparation
+    kernels, csrc/sweep_prep.cu) gives exactly the values of JAX's steps of
+    _swept_impl: the key, the permutation, the span lists, the caps, the
+    ray features and the records; with masked lanes, R no multiple of 128
+    (padded) and R <= 128 (one tile, no sort). Exact: the two CPU
+    libraries round the slab test and the cross product alike; their
+    atan2 differs in the last bit on about a sixth of inputs, which moves
+    a key only where phi lies within that bit of a bucket edge (none
+    here)."""
+    jdata, tdata = request.getfixturevalue(fixture)
+    rng = np.random.default_rng(n_rays + 31)
+    o, d = random_rays(rng, n_rays // 2)
+    oi, di = inside_rays(rng, n_rays - n_rays // 2)
+    o, d = np.concatenate([o, oi]), np.concatenate([d, di])
+    mask = rng.random(n_rays) >= masked
+    anyhit = rng.random(n_rays) < 0.4
+    want_key, want_perm, want, padded = _jax_prep(jdata, o, d, mask, anyhit)
+
+    t = torch.as_tensor
+    calls = (tsweep.sweep_key_plain.calls, tsweep.sweep_spans_plain.calls)
+    launches = (tsweep.sweep_key.launches, tsweep.sweep_spans.launches)
+    args, perm = tsweep.sweep_inputs(tdata, t(o), t(d), t(mask), t(anyhit))
+    sort = n_rays > tsweep.TILE_R
+    assert (tsweep.sweep_key_plain.calls,
+            tsweep.sweep_spans_plain.calls) == (calls[0] + sort, calls[1] + 1)
+    assert (tsweep.sweep_key.launches,
+            tsweep.sweep_spans.launches) == launches
+    padded_port = tsweep.pad_cast(t(o), t(d), t(mask), t(anyhit))
+    for x, y in zip(padded_port, padded):
+        assert torch.equal(x, y)
+    if sort:
+        key = tsweep.sweep_key(*padded, tdata.cl_aabb_min, tdata.cl_aabb_max)
+        np.testing.assert_array_equal(key.numpy(), np.asarray(want_key))
+        assert (key.numpy() != (1 << 30)).sum() > 100   # live keys
+        np.testing.assert_array_equal(perm.numpy(), np.asarray(want_perm))
+    else:
+        assert perm is None and want_perm is None
+    for name, got in zip(("nspan", "spans", "tile_sorted", "rayfeat",
+                          "best"), args[:5]):
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want[name]),
+                                      err_msg=name)
+    assert int(args[0].max()) > 1
+    assert args[5] is tdata.cl_trifeat or torch.equal(args[5],
+                                                      tdata.cl_trifeat)
