@@ -29,10 +29,12 @@ when torch sees no CUDA device, and when anything below fails:
     triangle, t to 1e-6 relative), with its bound and microseconds per
     span of the longest walk; then K1's preparation kernels (sweep_key,
     sweep_spans) against their plain versions, every output equal
-    (torch.equal), on a 131,072-ray primary cast, the first bounce's
-    merged pair, the bounce-4 pair, and the primary cast and pair on the
-    blocks of 512 and 1,024, each timed beside its plain version, the
-    stable torch.sort of the keys and its bound;
+    (torch.equal; the key int32), on a 131,072-ray primary cast, the first
+    bounce's merged pair, the bounce-4 pair, and the primary cast and pair
+    on the blocks of 512 and 1,024, each timed by CUDA-graph replays
+    beside its plain version, the stable torch.sort of the keys and its
+    bound (probes/prep_kernels.py's run_case), and the SASS instructions
+    per (ray, cluster) pair of each kernel's slab-test loop by pipe;
  4. K2 against its plain version at the schedule path's shapes: the same
     primary batch and the first bounce's bounce cast, with spans / nspan
     from the tracer's real votes; every round's launch is compared, the
@@ -170,9 +172,10 @@ It prints one line of numbers per phase, then a JSON line describing the
 kernels, then {"ok": true, "device": {...}} as the last line. --profile
 adds, before those two, a torch.profiler summary of one sweep pass and one
 schedule pass (device time in kernels, the kernels that took most of it,
-K1's and K2's time per launch), K1's device time by cast site, and for
-each of phase 16's row blocks the profiler's K1 or K2 device time and
-its device time in all kernels beside the probe's CUDA-event figure.
+K1's, K1's preparation kernels' and K2's time per launch), K1's device
+time by cast site, and for each of phase 16's row blocks the profiler's
+K1 or K2 device time and its device time in all kernels beside the
+probe's CUDA-event figure.
 """
 
 from __future__ import annotations
@@ -299,7 +302,8 @@ def profile_pass(label, ortf, scene, camera, config):
     print(f"profile {label}: pass {pass_s[0]:.3f} s under the profiler | "
           f"device in kernels {busy:.3f} s ({busy / pass_s[0]:.1%} of it), "
           f"{sum(r[2] for r in rows)} device operations | top: {top}")
-    for kernel in ("sweep_kernel", "cluster_intersect_kernel"):
+    for kernel in ("sweep_kernel", "sweep_key_kernel", "sweep_spans_kernel",
+                   "cluster_intersect_kernel"):
         hits = [r for r in rows if kernel in r[0]]
         if hits:
             t, n = sum(r[1] for r in hits), sum(r[2] for r in hits)
@@ -1227,7 +1231,7 @@ def main() -> int:
     from opengl_ray_tracing_framework_tpu_torch import probes
     from opengl_ray_tracing_framework_tpu_torch.probes import (  # noqa: F401
         kernel_build,   # its import registers every kernel's source
-        staging)
+        prep_kernels, staging)
     from opengl_ray_tracing_framework_tpu_torch.utils import nvcc
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1437,7 +1441,8 @@ def main() -> int:
               f"tile's walk ({staging.SPAN_WALK} spans each)")
 
     # K1's preparation kernels against their plain versions, every output
-    # equal, at the main path's shapes
+    # equal, at the main path's shapes, by the probe's own run_case; the
+    # SASS instructions per (ray, cluster) pair at the pair
     prep = {"sweep_key": {}, "sweep_spans": {}}
     prep_pid = frame_order[:PREP_RAYS]
     prep_o, prep_d = camera.generate_rays(
@@ -1445,55 +1450,6 @@ def main() -> int:
         ((prep_pid // WIDTH).float() + 0.5) / HEIGHT)
     prep_ones = torch.ones(PREP_RAYS, dtype=torch.bool, device=dev)
     prep_primary = (prep_o, prep_d, prep_ones, torch.zeros_like(prep_ones))
-
-    def prep_case(name, sc, rays):
-        """Hold sweep_key and sweep_spans against sweep_key_plain and
-        sweep_spans_plain on one cast's rays, padded as sweep_inputs pads
-        them; time each beside its plain version and print the line."""
-        o, d, m, a = sw.pad_cast(*rays)
-        lo, hi = sc.cl_aabb_min, sc.cl_aabb_max
-        key = sw.sweep_key(o, d, m, lo, hi)
-        perm = torch.sort(key, stable=True).indices
-        got = (key, *sw.sweep_spans(o, d, m, a, perm, lo, hi))
-        want = (sw.sweep_key_plain(o, d, m, lo, hi),
-                *sw.sweep_spans_plain(o, d, m, a, perm, lo, hi))
-        torch.cuda.synchronize()
-        err = 0.0
-        for label, g, w in zip(("key", "nspan", "spans", "tile_sorted",
-                                "rayfeat", "best"), got, want):
-            if g.dtype != w.dtype or not torch.equal(g, w):
-                fail(f"prep {name}: {label} differs from the plain version "
-                     f"in {int((g != w).sum())} of {w.numel()} entries")
-            err = max(err, (g.double() - w.double()).abs().max().item())
-        r, c, live = o.shape[0], lo.shape[0], int(m.sum())
-        g_tiles = r // sw.TILE_R
-        key_bytes = r * (24 + 1 + 8) + c * 24
-        spans_bytes = (r * (24 + 2 + 8) + c * 24 + g_tiles * 4
-                       + g_tiles * c * 8 + r * (16 + 8) * 4)
-        times = {
-            "sweep_key": (
-                cuda_ms(lambda: sw.sweep_key(o, d, m, lo, hi)),
-                cuda_ms(lambda: sw.sweep_key_plain(o, d, m, lo, hi),
-                        repeats=2),
-                probes.prep_bound(live * c, key_bytes)),
-            "sweep_spans": (
-                cuda_ms(lambda: sw.sweep_spans(o, d, m, a, perm, lo, hi)),
-                cuda_ms(lambda: sw.sweep_spans_plain(o, d, m, a, perm, lo,
-                                                     hi), repeats=2),
-                probes.prep_bound(live * c, spans_bytes))}
-        sort_ms = cuda_ms(lambda: torch.sort(key, stable=True))
-        parts = []
-        for kname, (ms, plain_ms, bound) in times.items():
-            prep[kname][name] = dict(err=err, ms=ms, plain_ms=plain_ms,
-                                     bound=bound)
-            parts.append(f"{kname} {ms:.4f} ms, plain {plain_ms:.3f} ms, "
-                         f"bound {bound[0]:.4f} ms by {bound[1]} (operations "
-                         f"{bound[2]:.4f} ms, bytes {bound[3]:.4f} ms)")
-        print(f"prep {name}: {r} rays ({live} live), {c} clusters, "
-              f"{g_tiles} tiles, spans/tile mean "
-              f"{got[1].float().mean().item():.1f} | every output equal | "
-              + " | ".join(parts) + f" | torch.sort of the keys "
-              f"{sort_ms:.4f} ms")
 
     for name, sc, rays in (
             ("primary", scene, prep_primary),
@@ -1504,7 +1460,14 @@ def main() -> int:
               for t_wide in WIDE_T
               for cast, rays in (("primary", prep_primary),
                                  ("pair", merged(captured[0]))))):
-        prep_case(name, sc, rays)
+        res = prep_kernels.run_case(name, sc, rays, plain=True)
+        if res["key_dtype"] != torch.int32:
+            fail(f"prep {name}: the key is {res['key_dtype']}, not "
+                 "torch.int32")
+        for kname, cases in prep.items():
+            cases[name] = res[kname]
+        if name == "pair":
+            prep_kernels.sass_report(res["pairs"])
 
     # 4. K2 vs plain at the schedule path's shapes: every round of the
     # primary cast and of the first bounce's bounce cast is compared; the

@@ -9,33 +9,50 @@
 // (:299-322). XLA fuses both slab passes into their reductions there, so
 // no (rays, clusters) matrix is written; the same holds here. Same
 // contract as the plain PyTorch versions in ops/sweep.py (sweep_key_plain,
-// sweep_spans_plain), value for value:
+// sweep_spans_plain), value for value.
 //
-//   sweep_key: one thread per ray. The cluster boxes pass through shared
-//   memory in chunks of CHUNK (24 bytes each, read as two 16-byte
-//   broadcasts); each thread keeps the count of clusters its ray enters,
-//   the least entry distance and its first index, and writes the key
-//   nearest * 128 + kphi * 8 + kct, or DEAD_KEY for a masked ray or one
-//   that enters no cluster. The stable sort of the keys stays torch.sort.
+// What bounds both kernels on this card: the slab test, ~27 FP32
+// operations per (live ray, cluster) pair against few bytes
+// (probes.prep_bound). Of its instructions the 6 subtractions and 6
+// products issue on the FMA pipe; the 10 min / max and the compares issue
+// on the ALU pipe, at half the FMA pipe's rate, so the ALU pipe and the
+// issue rate, not the FP32 peak, set how near the bound a kernel gets
+// (probes/prep_kernels.py counts each kernel's SASS per pair; PERF.md has
+// the times). The designs spend as few instructions per pair as that
+// allows: each pair's slab test runs once in each kernel, boxes come from
+// shared memory as 16-byte broadcasts, the INF starting values of the
+// fold are gone, and what a warp shares (its tile minimum, an all-masked
+// warp's skip) costs one warp-wide instruction, not one per ray.
 //
-//   sweep_spans: one CTA per tile of TILE_R rays in kernel order (ray i of
-//   the tile is ray perm[i] of the inputs: the sort's gathers happen
-//   here). Thread i owns the tile's ray i: it writes the ray's feature row
-//   and record, and folds its ray's finite entry distances into the cap.
-//   For the tile minimum each thread owns up to PER_THREAD clusters of a
-//   chunk and walks the tile's rays, held in shared memory: twice the slab
-//   arithmetic, no reduction across threads and no atomics. The tile's C
-//   (minimum, index) pairs are 64-bit keys in shared memory (the float's
-//   bits above the index: every entry distance is +0.0, positive or INF,
-//   so the bits order as the floats do), sorted by a bitonic sort; the
-//   index in the low bits makes it the stable sort. C is bounded by that
-//   shared memory: MAX_CLUSTERS (ops/sweep.py refuses more).
+//   sweep_key: two rays per thread (KEY_RAYS), as independent chains,
+//   and CTAs of 128 threads (KEY_THREADS). The cluster boxes pass through shared memory in
+//   chunks of CHUNK, as six coordinate arrays read four boxes at a time
+//   (six 16-byte broadcasts per four boxes). A warp whose rays are all
+//   masked skips the boxes. Each ray keeps its least entry distance and
+//   its first index and writes the int32 key nearest * 128 + kphi * 8 +
+//   kct, or DEAD_KEY for a masked ray or one that enters no cluster
+//   (least < INF says whether it entered one). The stable sort of the
+//   keys stays torch.sort. Small casts (a few hundred rays) are latency:
+//   CTAs of 128 keep more SMs busy there.
 //
-// What bounds it on this card: FP32 operations, a slab test of ~27 per
-// (ray, cluster) pair and few bytes (PERF.md; chip_smoke.py phase 3 holds
-// both kernels against their plain versions and times them). The eager
-// version wrote each 16,384-ray chunk of the (rays, clusters) matrix
-// through ~25 elementwise kernels; these write only the results.
+//   sweep_spans: one CTA per tile of TILE_R rays in kernel order (ray i
+//   of the tile is ray perm[i] of the inputs: the sort's gathers happen
+//   here). Thread i owns the tile's ray i and computes its entry distance
+//   to each cluster once: it folds it into the ray's cap and, by one
+//   redux.sync minimum over the warp, into the warp's row of minima in
+//   shared memory (every lane stores the same word: one store, no
+//   branch); the four rows' minimum is the tile minimum. Every entry
+//   distance is +0.0, positive or INF, so its bits order as unsigned
+//   integers do (cluster_tnear never gives -0.0). A masked ray gives INF;
+//   a warp with no live ray skips the boxes; a tile with no live ray
+//   writes every entry INF with the clusters in index order and sorts
+//   nothing. The others compact their finite minima, in index order, into
+//   64-bit keys (the float's bits above the index) and sort only those: a
+//   tile overlaps few clusters, so the bitonic sort runs on one warp over
+//   at most 64 keys in most tiles, and the index in the low bits makes it
+//   the stable sort. The INF entries follow in index order. C is bounded
+//   by the shared memory of the rows and keys: MAX_CLUSTERS (ops/sweep.py
+//   refuses more).
 //
 // Exactness: every step rounds as the eager torch version does on the
 // card. No fast math (utils/nvcc.py passes none): 1 / d is IEEE division,
@@ -43,25 +60,41 @@
 // compiler does not contract into an FMA (torch rounds each op). The
 // cross product of the ray features is fma(a_i, b_j, -(a_j * b_i)), the
 // contraction torch.linalg.cross gets. The argmin keeps the first least
-// index (ascending scan, strict <); the slab folds x, y, z from -INF / INF
-// and clamps the entry to +0.0.
+// index (ascending scan, strict <). The slab test folds its three axes
+// without the plain version's -INF / INF starting values and tests the
+// entry against INF instead (`enters`), which decides every case alike;
+// the entry is max(t0, +0.0), never -0.0.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
+constexpr int KEY_THREADS = 128;      // sweep_key's threads per CTA
+constexpr int KEY_RAYS = 2;           // sweep_key's rays per thread
 constexpr int TILE_R = 128;           // rays per tile: ops/sweep.py TILE_R
+constexpr int WARPS = TILE_R / 32;
 constexpr int MAX_CLUSTERS = 8192;    // ops/sweep.py MAX_CLUSTERS
 constexpr int N_FEAT = 16;            // ray feature row [o, d, o x d, 1, 0]
 constexpr int BEST_W = 8;             // record [t, slot, inside, cap, anyhit]
 constexpr float INF = 114514.0f;      // ops/intersect.py INF
-constexpr long long DEAD_KEY = 1LL << 30;
-constexpr int KEY_THREADS = 256;
+constexpr unsigned INF_BITS = 0x47dfa900u;   // the bits of INF
+constexpr int DEAD_KEY = 1 << 30;
 constexpr int CHUNK = 512;            // cluster boxes staged at a time
-constexpr int PER_THREAD = CHUNK / TILE_R;
+constexpr unsigned FULL = 0xffffffffu;
+constexpr int WARP_SORT = 64;         // most keys a warp sorts alone
 // 0.5 / pi as the float torch multiplies by (a Python float scalar)
 constexpr float PHI_SCALE = static_cast<float>(0.5 / 3.14159265358979323846);
+
+struct Box { float lx, ly, lz, hx, hy, hz; };
+struct Ray { float ox, oy, oz, ix, iy, iz; };
+
+// A chunk of boxes: min x, y, z, max x, y, z, each an array of CHUNK.
+struct Boxes { float v[6][CHUNK]; };
+// sweep_spans at MAX_CLUSTERS: its keys and rows, its boxes and counts
+static_assert(MAX_CLUSTERS * (8 + 4 * WARPS) + sizeof(Boxes) + 4 * WARPS
+                  <= 232448,
+              "sweep_spans's shared memory exceeds the 227 KB a CTA may use");
 
 // 1 / d with |d| < 1e-12 replaced by +-1e-12 (the sign of d; +0 for -0.0).
 __device__ __forceinline__ float reciprocal(float d) {
@@ -69,37 +102,63 @@ __device__ __forceinline__ float reciprocal(float d) {
   return __fdiv_rn(1.0f, s);
 }
 
-__device__ __forceinline__ void slab_axis(float lo, float hi, float o,
-                                          float inv, float& t0, float& t1) {
-  const float near = __fmul_rn(__fsub_rn(lo, o), inv);
-  const float far = __fmul_rn(__fsub_rn(hi, o), inv);
-  t0 = fmaxf(t0, fminf(near, far));
-  t1 = fminf(t1, fmaxf(near, far));
+__device__ __forceinline__ Ray make_ray(const float* o, const float* d) {
+  return Ray{o[0], o[1], o[2], reciprocal(d[0]), reciprocal(d[1]),
+             reciprocal(d[2])};
 }
 
-// Entry distance of a ray (ra = o.xyz, inv.x; rb = inv.yz, ...) into a box
-// (ba = min.xyz, max.x; bb = max.yz, ...): max(t0, +0) where the slab test
-// passes (t1 >= t0 and t1 > 0), INF where it misses.
-__device__ __forceinline__ float entry(const float4& ba, const float4& bb,
-                                       const float4& ra, const float4& rb) {
-  float t0 = -INF, t1 = INF;
-  slab_axis(ba.x, ba.w, ra.x, ra.w, t0, t1);
-  slab_axis(ba.y, bb.x, ra.y, rb.x, t0, t1);
-  slab_axis(ba.z, bb.y, ra.z, rb.y, t0, t1);
-  return (t1 >= t0 && t1 > 0.0f) ? (t0 > 0.0f ? t0 : 0.0f) : INF;
+// The ray's entry t0 and exit t1 of the box's three slabs.
+__device__ __forceinline__ void slabs(const Box& b, const Ray& r, float& t0,
+                                      float& t1) {
+  const float nx = __fmul_rn(__fsub_rn(b.lx, r.ox), r.ix);
+  const float fx = __fmul_rn(__fsub_rn(b.hx, r.ox), r.ix);
+  const float ny = __fmul_rn(__fsub_rn(b.ly, r.oy), r.iy);
+  const float fy = __fmul_rn(__fsub_rn(b.hy, r.oy), r.iy);
+  const float nz = __fmul_rn(__fsub_rn(b.lz, r.oz), r.iz);
+  const float fz = __fmul_rn(__fsub_rn(b.hz, r.oz), r.iz);
+  t0 = fmaxf(fmaxf(fminf(nx, fx), fminf(ny, fy)), fminf(nz, fz));
+  t1 = fminf(fminf(fmaxf(nx, fx), fmaxf(ny, fy)), fmaxf(nz, fz));
 }
 
-// Clusters [lo, lo + n) of cl_min / cl_max (C, 3) into box_a / box_b.
+// The slab test passes (t1 >= t0 and t1 > 0 after folding from -INF /
+// INF): without those starting values, t0 > INF is the one case to add.
+__device__ __forceinline__ bool enters(float t0, float t1) {
+  return t1 >= t0 && t1 > 0.0f && t0 <= INF;
+}
+
+// The bits of max(t0, +0.0): as a signed int, t0 < 0 and -0.0 are < 0.
+__device__ __forceinline__ unsigned entry_bits(float t0) {
+  return static_cast<unsigned>(max(__float_as_int(t0), 0));
+}
+
+// Clusters [lo, lo + n) of cl_min / cl_max (C, 3) into s, coalesced.
 __device__ __forceinline__ void stage_boxes(const float* __restrict__ cl_min,
                                             const float* __restrict__ cl_max,
-                                            int lo, int n, float4* box_a,
-                                            float4* box_b) {
-  for (int k = threadIdx.x; k < n; k += blockDim.x) {
-    const float* mn = cl_min + 3LL * (lo + k);
-    const float* mx = cl_max + 3LL * (lo + k);
-    box_a[k] = make_float4(mn[0], mn[1], mn[2], mx[0]);
-    box_b[k] = make_float4(mx[1], mx[2], 0.0f, 0.0f);
+                                            int lo, int n, Boxes& s) {
+  for (int j = threadIdx.x; j < 3 * n; j += blockDim.x) {
+    const int k = j / 3, ax = j - 3 * k;
+    s.v[ax][k] = cl_min[3LL * lo + j];
+    s.v[3 + ax][k] = cl_max[3LL * lo + j];
   }
+}
+
+// f(k, box) for the n staged boxes in ascending k, four at a time.
+template <class F>
+__device__ __forceinline__ void for_each_box(const Boxes& s, int n, F&& f) {
+  int k = 0;
+  for (; k + 4 <= n; k += 4) {
+    float4 q[6];
+#pragma unroll
+    for (int a = 0; a < 6; ++a)
+      q[a] = *reinterpret_cast<const float4*>(&s.v[a][k]);
+    f(k, Box{q[0].x, q[1].x, q[2].x, q[3].x, q[4].x, q[5].x});
+    f(k + 1, Box{q[0].y, q[1].y, q[2].y, q[3].y, q[4].y, q[5].y});
+    f(k + 2, Box{q[0].z, q[1].z, q[2].z, q[3].z, q[4].z, q[5].z});
+    f(k + 3, Box{q[0].w, q[1].w, q[2].w, q[3].w, q[4].w, q[5].w});
+  }
+  for (; k < n; ++k)
+    f(k, Box{s.v[0][k], s.v[1][k], s.v[2][k], s.v[3][k], s.v[4][k],
+             s.v[5][k]});
 }
 
 __global__ void __launch_bounds__(KEY_THREADS)
@@ -107,139 +166,80 @@ sweep_key_kernel(const float* __restrict__ origin,
                  const float* __restrict__ direction,
                  const bool* __restrict__ mask,
                  const float* __restrict__ cl_min,
-                 const float* __restrict__ cl_max, long long* __restrict__ key,
+                 const float* __restrict__ cl_max, int* __restrict__ key,
                  int n_rays, int n_clusters) {
-  __shared__ float4 box_a[CHUNK], box_b[CHUNK];
-  const int i = blockIdx.x * KEY_THREADS + threadIdx.x;
-  const bool in = i < n_rays;
-  const bool live = in && mask[i];
-  float d[3] = {0.0f, 0.0f, 0.0f};
-  float4 ra = make_float4(0.0f, 0.0f, 0.0f, 0.0f), rb = ra;
-  if (live) {
-    const float* o = origin + 3LL * i;
-    d[0] = direction[3LL * i];
-    d[1] = direction[3LL * i + 1];
-    d[2] = direction[3LL * i + 2];
-    ra = make_float4(o[0], o[1], o[2], reciprocal(d[0]));
-    rb = make_float4(reciprocal(d[1]), reciprocal(d[2]), 0.0f, 0.0f);
+  __shared__ __align__(16) Boxes boxes;
+  const long long first =
+      static_cast<long long>(blockIdx.x) * KEY_THREADS * KEY_RAYS +
+      threadIdx.x;
+  const float idle[3] = {0.0f, 0.0f, 1.0f};   // a ray whose key is unused
+  Ray ray[KEY_RAYS];
+  bool live[KEY_RAYS];
+  float least[KEY_RAYS];
+  int nearest[KEY_RAYS];
+  bool any = false;
+#pragma unroll
+  for (int q = 0; q < KEY_RAYS; ++q) {
+    const long long i = first + q * KEY_THREADS;
+    live[q] = i < n_rays && mask[i];
+    ray[q] = live[q] ? make_ray(origin + 3 * i, direction + 3 * i)
+                     : make_ray(idle, idle);
+    least[q] = INF;
+    nearest[q] = 0;
+    any |= live[q];
   }
-  int ncand = 0, nearest = 0;
-  float least = INF;
+  const bool warp_live = __any_sync(FULL, any);
   for (int lo = 0; lo < n_clusters; lo += CHUNK) {
     const int n = min(CHUNK, n_clusters - lo);
     __syncthreads();   // the previous chunk is read
-    stage_boxes(cl_min, cl_max, lo, n, box_a, box_b);
+    stage_boxes(cl_min, cl_max, lo, n, boxes);
     __syncthreads();
-    if (live) {
-      for (int k = 0; k < n; ++k) {
-        const float tn = entry(box_a[k], box_b[k], ra, rb);
-        ncand += tn < INF;
-        if (tn < least) {   // strict: the first least index, as argmin
-          least = tn;
-          nearest = lo + k;
+    if (!warp_live) continue;
+    for_each_box(boxes, n, [&](int k, const Box& b) {
+#pragma unroll
+      for (int q = 0; q < KEY_RAYS; ++q) {
+        float t0, t1;
+        slabs(b, ray[q], t0, t1);
+        const float e = __uint_as_float(entry_bits(t0));
+        // strict: the first least index, as argmin. A miss (INF) never
+        // lowers least, which starts at INF, so e < least also holds
+        // enters()'s test t0 <= INF.
+        if (t1 >= t0 && t1 > 0.0f && e < least[q]) {
+          least[q] = e;
+          nearest[q] = lo + k;
         }
       }
+    });
+  }
+#pragma unroll
+  for (int q = 0; q < KEY_RAYS; ++q) {
+    const long long i = first + q * KEY_THREADS;
+    if (i >= n_rays) continue;
+    int out = DEAD_KEY;
+    if (live[q] && least[q] < INF) {
+      const float dx = direction[3 * i], dy = direction[3 * i + 1],
+                  dz = direction[3 * i + 2];
+      const float phi = atan2f(dz, dx);
+      int kphi = static_cast<int>(__fmul_rn(
+          __fadd_rn(__fmul_rn(phi, PHI_SCALE), 0.5f), 16.0f));
+      int kct = static_cast<int>(__fmul_rn(
+          __fadd_rn(__fmul_rn(dy, 0.5f), 0.5f), 8.0f));
+      kphi = kphi < 0 ? 0 : (kphi > 15 ? 15 : kphi);
+      kct = kct < 0 ? 0 : (kct > 7 ? 7 : kct);
+      out = nearest[q] * 128 + kphi * 8 + kct;
     }
+    key[i] = out;
   }
-  if (!in) return;
-  long long out = DEAD_KEY;
-  if (live && ncand > 0) {
-    const float phi = atan2f(d[2], d[0]);
-    long long kphi = static_cast<long long>(__fmul_rn(
-        __fadd_rn(__fmul_rn(phi, PHI_SCALE), 0.5f), 16.0f));
-    long long kct = static_cast<long long>(__fmul_rn(
-        __fadd_rn(__fmul_rn(d[1], 0.5f), 0.5f), 8.0f));
-    kphi = kphi < 0 ? 0 : (kphi > 15 ? 15 : kphi);
-    kct = kct < 0 ? 0 : (kct > 7 ? 7 : kct);
-    out = static_cast<long long>(nearest) * 128 + kphi * 8 + kct;
-  }
-  key[i] = out;
 }
 
-__global__ void __launch_bounds__(TILE_R)
-sweep_spans_kernel(const float* __restrict__ origin,
-                   const float* __restrict__ direction,
-                   const bool* __restrict__ mask,
-                   const bool* __restrict__ anyhit,
-                   const long long* __restrict__ perm,
-                   const float* __restrict__ cl_min,
-                   const float* __restrict__ cl_max, int n_clusters,
-                   int n_sort, int* __restrict__ nspan,
-                   int* __restrict__ spans, float* __restrict__ tile_sorted,
-                   float* __restrict__ rayfeat, float* __restrict__ best) {
-  extern __shared__ unsigned long long keys[];   // n_sort >= n_clusters
-  __shared__ float4 box_a[CHUNK], box_b[CHUNK];
-  __shared__ float4 ray_a[TILE_R], ray_b[TILE_R];
-  const int t = threadIdx.x;
-  const long long row = static_cast<long long>(blockIdx.x) * TILE_R + t;
-  const long long src = perm != nullptr ? perm[row] : row;
-  const float o[3] = {origin[3 * src], origin[3 * src + 1],
-                      origin[3 * src + 2]};
-  const float d[3] = {direction[3 * src], direction[3 * src + 1],
-                      direction[3 * src + 2]};
-  const bool live = mask[src];
-  const float4 ra = make_float4(o[0], o[1], o[2], reciprocal(d[0]));
-  const float4 rb = make_float4(reciprocal(d[1]), reciprocal(d[2]),
-                                live ? 1.0f : 0.0f, 0.0f);
-  ray_a[t] = ra;
-  ray_b[t] = rb;
-
-  float4* feat = reinterpret_cast<float4*>(rayfeat + row * N_FEAT);
-  feat[0] = make_float4(o[0], o[1], o[2], d[0]);
-  feat[1] = make_float4(d[1], d[2],
-                        __fmaf_rn(o[1], d[2], -__fmul_rn(o[2], d[1])),
-                        __fmaf_rn(o[2], d[0], -__fmul_rn(o[0], d[2])));
-  feat[2] = make_float4(__fmaf_rn(o[0], d[1], -__fmul_rn(o[1], d[0])), 1.0f,
-                        0.0f, 0.0f);
-  feat[3] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-
-  float far = -INF;   // the ray's farthest finite entry distance
-  for (int lo = 0; lo < n_clusters; lo += CHUNK) {
-    const int n = min(CHUNK, n_clusters - lo);
-    __syncthreads();   // the previous chunk is read (the first: the rays)
-    stage_boxes(cl_min, cl_max, lo, n, box_a, box_b);
-    __syncthreads();
-    if (live) {
-      for (int k = 0; k < n; ++k) {
-        const float tn = entry(box_a[k], box_b[k], ra, rb);
-        if (tn < INF) far = fmaxf(far, tn);
-      }
-    }
-    // the tile minimum of clusters t, t + TILE_R, ... of the chunk; the
-    // count of them is uniform over the CTA
-    const int owned = (n + TILE_R - 1) / TILE_R;
-    float4 ba[PER_THREAD], bb[PER_THREAD];
-    float least[PER_THREAD];
-#pragma unroll
-    for (int q = 0; q < PER_THREAD; ++q) {
-      const int k = t + q * TILE_R;
-      ba[q] = k < n ? box_a[k] : box_a[0];
-      bb[q] = k < n ? box_b[k] : box_b[0];
-      least[q] = INF;
-    }
-    for (int j = 0; j < TILE_R; ++j) {
-      const float4 qa = ray_a[j], qb = ray_b[j];
-      if (qb.z == 0.0f) continue;   // a masked ray: INF against every box
-#pragma unroll
-      for (int q = 0; q < PER_THREAD; ++q)
-        if (q < owned) least[q] = fminf(least[q], entry(ba[q], bb[q], qa, qb));
-    }
-#pragma unroll
-    for (int q = 0; q < PER_THREAD; ++q) {
-      const int k = t + q * TILE_R;
-      if (k < n)
-        keys[lo + k] =
-            (static_cast<unsigned long long>(__float_as_uint(least[q])) << 32)
-            | static_cast<unsigned>(lo + k);
-    }
-  }
-  for (int k = n_clusters + t; k < n_sort; k += TILE_R) keys[k] = ~0ULL;
-
-  // bitonic sort of the n_sort keys, ascending
-  for (int size = 2; size <= n_sort; size <<= 1) {
+// Ascending bitonic sort of keys[0, n), n a power of two >= 2, by
+// `threads` threads numbered t: the whole CTA (block) or one warp.
+__device__ __forceinline__ void bitonic(unsigned long long* keys, int n,
+                                        int t, int threads, bool block) {
+  for (int size = 2; size <= n; size <<= 1) {
     for (int stride = size >> 1; stride > 0; stride >>= 1) {
-      __syncthreads();
-      for (int p = t; p < (n_sort >> 1); p += TILE_R) {
+      if (block) __syncthreads(); else __syncwarp();
+      for (int p = t; p < (n >> 1); p += threads) {
         const int a = 2 * p - (p & (stride - 1));
         const int b = a + stride;
         const unsigned long long ka = keys[a], kb = keys[b];
@@ -250,26 +250,150 @@ sweep_spans_kernel(const float* __restrict__ origin,
       }
     }
   }
-  __syncthreads();
+}
 
-  const long long base = static_cast<long long>(blockIdx.x) * n_clusters;
-  for (int k = t; k < n_clusters; k += TILE_R) {
-    const unsigned long long kv = keys[k];
-    const float v = __uint_as_float(static_cast<unsigned>(kv >> 32));
-    tile_sorted[base + k] = v;
-    spans[base + k] = static_cast<int>(kv & 0xffffffffULL);
-    // nspan: the count of entries < INF, which lead the sorted list
-    if (v < INF && (k + 1 == n_clusters ||
-                    !(__uint_as_float(static_cast<unsigned>(
-                          keys[k + 1] >> 32)) < INF)))
-      nspan[blockIdx.x] = k + 1;
+__global__ void __launch_bounds__(TILE_R)
+sweep_spans_kernel(const float* __restrict__ origin,
+                   const float* __restrict__ direction,
+                   const bool* __restrict__ mask,
+                   const bool* __restrict__ anyhit,
+                   const long long* __restrict__ perm,
+                   const float* __restrict__ cl_min,
+                   const float* __restrict__ cl_max, int n_clusters,
+                   int n_keys, int* __restrict__ nspan,
+                   int* __restrict__ spans, float* __restrict__ tile_sorted,
+                   float* __restrict__ rayfeat, float* __restrict__ best) {
+  // keys: n_keys (a power of two >= C); rows: each warp's C minima (float
+  // bits); the first row then holds the tile minima (tmin) and in place
+  // the clusters whose minimum is INF, in index order
+  extern __shared__ __align__(16) unsigned long long keys[];
+  unsigned* rows = reinterpret_cast<unsigned*>(keys + n_keys);
+  unsigned* tmin = rows;
+  __shared__ __align__(16) Boxes boxes;
+  __shared__ int warp_count[WARPS];
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int c = n_clusters;
+  const long long row = static_cast<long long>(blockIdx.x) * TILE_R + t;
+  const long long src = perm != nullptr ? perm[row] : row;
+  const float o[3] = {origin[3 * src], origin[3 * src + 1],
+                      origin[3 * src + 2]};
+  const float d[3] = {direction[3 * src], direction[3 * src + 1],
+                      direction[3 * src + 2]};
+  const bool live = mask[src];
+  const Ray ray = make_ray(o, d);
+
+  float4* feat = reinterpret_cast<float4*>(rayfeat + row * N_FEAT);
+  feat[0] = make_float4(o[0], o[1], o[2], d[0]);
+  feat[1] = make_float4(d[1], d[2],
+                        __fmaf_rn(o[1], d[2], -__fmul_rn(o[2], d[1])),
+                        __fmaf_rn(o[2], d[0], -__fmul_rn(o[0], d[2])));
+  feat[2] = make_float4(__fmaf_rn(o[0], d[1], -__fmul_rn(o[1], d[0])), 1.0f,
+                        0.0f, 0.0f);
+  feat[3] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+
+  const long long base = static_cast<long long>(blockIdx.x) * c;
+  int far_bits = -1;   // the ray's farthest finite entry distance; -1: none
+  if (!__syncthreads_or(live)) {
+    // no live ray: every tile minimum is INF, in index order
+    for (int k = t; k < c; k += TILE_R) {
+      spans[base + k] = k;
+      tile_sorted[base + k] = INF;
+    }
+    if (t == 0) nspan[blockIdx.x] = 0;
+  } else {
+    const bool warp_live = __any_sync(FULL, live);
+    unsigned* row = rows + warp * c;
+    if (!warp_live)
+      for (int k = lane; k < c; k += 32) row[k] = INF_BITS;
+    for (int lo = 0; lo < c; lo += CHUNK) {
+      const int n = min(CHUNK, c - lo);
+      __syncthreads();   // the previous chunk is read
+      stage_boxes(cl_min, cl_max, lo, n, boxes);
+      __syncthreads();
+      if (!warp_live) continue;
+      for_each_box(boxes, n, [&](int k, const Box& b) {
+        float t0, t1;
+        slabs(b, ray, t0, t1);
+        const unsigned e =
+            live && enters(t0, t1) ? entry_bits(t0) : INF_BITS;
+        if (e < INF_BITS) far_bits = max(far_bits, static_cast<int>(e));
+        row[lo + k] = __reduce_min_sync(FULL, e);   // every lane, one word
+      });
+    }
+    __syncthreads();
+    for (int k = t; k < c; k += TILE_R) {
+      unsigned v = rows[k];
+#pragma unroll
+      for (int w = 1; w < WARPS; ++w) v = min(v, rows[w * c + k]);
+      tmin[k] = v;
+    }
+    __syncthreads();
+
+    // compact the finite minima into keys and the rest into tmin, both in
+    // index order, 128 clusters at a time
+    int nf = 0;   // finite minima so far
+    for (int lo = 0; lo < c; lo += TILE_R) {
+      const int k = lo + t;
+      const unsigned v = k < c ? tmin[k] : INF_BITS;
+      const bool fin = v < INF_BITS;
+      const unsigned ballot = __ballot_sync(FULL, fin);
+      if (lane == 0) warp_count[warp] = __popc(ballot);
+      __syncthreads();   // tmin[lo, lo + 128) is read
+      int before = nf + __popc(ballot & ((1u << lane) - 1u)), total = 0;
+#pragma unroll
+      for (int w = 0; w < WARPS; ++w) {
+        const int n_w = warp_count[w];
+        before += w < warp ? n_w : 0;
+        total += n_w;
+      }
+      if (fin)
+        keys[before] = (static_cast<unsigned long long>(v) << 32) |
+                       static_cast<unsigned>(k);
+      else if (k < c)
+        tmin[k - before] = static_cast<unsigned>(k);   // k - before <= k
+      nf += total;
+      __syncthreads();   // warp_count is read
+    }
+    int n_sort = 1;
+    while (n_sort < nf) n_sort <<= 1;
+    for (int j = nf + t; j < n_sort; j += TILE_R) keys[j] = ~0ULL;
+    __syncthreads();
+    if (n_sort > WARP_SORT) {
+      bitonic(keys, n_sort, t, TILE_R, true);
+    } else if (n_sort > 1 && warp == 0) {
+      bitonic(keys, n_sort, lane, 32, false);
+    }
+    __syncthreads();
+
+    for (int k = t; k < c; k += TILE_R) {
+      if (k < nf) {
+        const unsigned long long kv = keys[k];
+        spans[base + k] = static_cast<int>(kv & 0xffffffffULL);
+        tile_sorted[base + k] =
+            __uint_as_float(static_cast<unsigned>(kv >> 32));
+      } else {
+        spans[base + k] = static_cast<int>(tmin[k - nf]);
+        tile_sorted[base + k] = INF;
+      }
+    }
+    if (t == 0) nspan[blockIdx.x] = nf;
   }
-  if (t == 0 && !(__uint_as_float(static_cast<unsigned>(keys[0] >> 32)) < INF))
-    nspan[blockIdx.x] = 0;
 
+  const float far = far_bits < 0 ? -INF : __int_as_float(far_bits);
   float4* rec = reinterpret_cast<float4*>(best + row * BEST_W);
   rec[0] = make_float4(live ? INF : -INF, -1.0f, 0.0f, nextafterf(far, INF));
   rec[1] = make_float4(anyhit[src] ? 1.0f : 0.0f, 0.0f, 0.0f, 0.0f);
+}
+
+int pow2_at_least(int n) {
+  int p = 1;
+  while (p < n) p <<= 1;
+  return p;
+}
+
+size_t spans_smem(int n_clusters) {
+  return pow2_at_least(n_clusters) * sizeof(unsigned long long) +
+         WARPS * n_clusters * sizeof(unsigned);
 }
 
 bool spans_smem_set = false;   // this library's kernel may take MAX_CLUSTERS
@@ -278,18 +402,19 @@ bool spans_smem_set = false;   // this library's kernel may take MAX_CLUSTERS
 
 extern "C" int sweep_prep_tile_rays() { return TILE_R; }
 
-// The most clusters sweep_spans takes (its shared-memory sort).
+// The most clusters sweep_spans takes (its shared-memory minima and keys).
 extern "C" int sweep_prep_max_clusters() { return MAX_CLUSTERS; }
 
 // origin, direction (R, 3) f32; mask (R,) bool; cl_min, cl_max (C, 3) f32
-// -> key (R,) int64. Launches on `stream` and returns the CUDA error of the
+// -> key (R,) int32. Launches on `stream` and returns the CUDA error of the
 // launch (0: none).
 extern "C" int sweep_key_launch(const float* origin, const float* direction,
                                 const bool* mask, const float* cl_min,
-                                const float* cl_max, long long* key,
-                                int n_rays, int n_clusters, void* stream) {
+                                const float* cl_max, int* key, int n_rays,
+                                int n_clusters, void* stream) {
   if (n_rays <= 0) return static_cast<int>(cudaGetLastError());
-  sweep_key_kernel<<<(n_rays + KEY_THREADS - 1) / KEY_THREADS, KEY_THREADS, 0,
+  constexpr int per_cta = KEY_THREADS * KEY_RAYS;
+  sweep_key_kernel<<<(n_rays + per_cta - 1) / per_cta, KEY_THREADS, 0,
                      static_cast<cudaStream_t>(stream)>>>(
       origin, direction, mask, cl_min, cl_max, key, n_rays, n_clusters);
   return static_cast<int>(cudaGetLastError());
@@ -314,18 +439,16 @@ extern "C" int sweep_spans_launch(const float* origin, const float* direction,
   if (!spans_smem_set) {
     const cudaError_t rc = cudaFuncSetAttribute(
         sweep_spans_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(MAX_CLUSTERS * sizeof(unsigned long long)));
+        static_cast<int>(spans_smem(MAX_CLUSTERS)));
     if (rc != cudaSuccess) {
       cudaGetLastError();
       return static_cast<int>(rc);
     }
     spans_smem_set = true;
   }
-  int n_sort = 1;
-  while (n_sort < n_clusters) n_sort <<= 1;
-  sweep_spans_kernel<<<n_tiles, TILE_R, n_sort * sizeof(unsigned long long),
+  sweep_spans_kernel<<<n_tiles, TILE_R, spans_smem(n_clusters),
                        static_cast<cudaStream_t>(stream)>>>(
       origin, direction, mask, anyhit, perm, cl_min, cl_max, n_clusters,
-      n_sort, nspan, spans, tile_sorted, rayfeat, best);
+      pow2_at_least(n_clusters), nspan, spans, tile_sorted, rayfeat, best);
   return static_cast<int>(cudaGetLastError());
 }

@@ -54,7 +54,8 @@ BEST_W = 8            # record [t, slot, inside, cap, anyhit, 0, 0, 0]
 EPS_ROW = 10          # trifeat row carrying E in the A-group columns
 MAX_BLOCK_TRIS = 4096  # widest cluster block the kernels take (a 12-bit
                        # lane in their keys); csrc/mt_span.cuh agrees
-MAX_CLUSTERS = 8192   # most clusters sweep_spans sorts in shared memory;
+MAX_CLUSTERS = 8192   # most clusters whose tile minima and keys
+                      # sweep_spans holds in shared memory;
                       # csrc/sweep_prep.cu agrees
 _DEAD_KEY = 1 << 30   # sort key for rays that trace nothing
 _SLAB_CHUNK = 128 * TILE_R   # rays per slab-test chunk
@@ -96,15 +97,15 @@ def ray_features(origin, direction):
 
 
 def _sort_key(tn, direction, mask):
-    """Coherence sort key from the slab test: major the ray's nearest
-    candidate cluster, minor a 7-bit quantized direction; _DEAD_KEY for
-    rays with no candidate or masked off."""
+    """Coherence sort key (R,) int32 from the slab test: major the ray's
+    nearest candidate cluster, minor a 7-bit quantized direction;
+    _DEAD_KEY for rays with no candidate or masked off."""
     ncand = torch.sum(tn < INF, dim=1)
-    nearest = torch.argmin(tn, dim=1)
+    nearest = torch.argmin(tn, dim=1).to(torch.int32)
     phi = torch.atan2(direction[:, 2], direction[:, 0])
-    kphi = torch.clamp(((phi * (0.5 / math.pi) + 0.5) * 16).to(torch.int64),
+    kphi = torch.clamp(((phi * (0.5 / math.pi) + 0.5) * 16).to(torch.int32),
                        0, 15)
-    kct = torch.clamp(((direction[:, 1] * 0.5 + 0.5) * 8).to(torch.int64),
+    kct = torch.clamp(((direction[:, 1] * 0.5 + 0.5) * 8).to(torch.int32),
                       0, 7)
     key = nearest * 128 + kphi * 8 + kct
     return torch.where(mask & (ncand > 0), key, _DEAD_KEY)
@@ -298,7 +299,7 @@ nvcc.register("sweep", _declare, _smoke)
 
 def sweep_key_plain(origin, direction, mask, cl_min, cl_max):
     """Plain PyTorch version of csrc/sweep_prep.cu's sweep_key: the
-    coherence key (R,) int64 of each ray (_sort_key) from the slab test,
+    coherence key (R,) int32 of each ray (_sort_key) from the slab test,
     in chunks of _SLAB_CHUNK rays."""
     sweep_key_plain.calls += 1
     return torch.cat([
@@ -401,7 +402,7 @@ def _prep_device(fn, origin, cl_min):
 def sweep_key(origin, direction, mask, cl_min, cl_max):
     """The coherence key of each ray: csrc/sweep_prep.cu's sweep_key on a
     CUDA tensor (up to MAX_CLUSTERS clusters; ValueError beyond),
-    sweep_key_plain on a CPU tensor; the same (R,) int64 values.
+    sweep_key_plain on a CPU tensor; the same (R,) int32 values.
     `sweep_key.launches` counts kernel launches."""
     dev = _prep_device("sweep_key", origin, cl_min)
     if dev.type == "cpu":
@@ -413,7 +414,7 @@ def sweep_key(origin, direction, mask, cl_min, cl_max):
         ("mask", mask, torch.bool, (r,)),
         ("cl_min", cl_min, torch.float32, (c, 3)),
         ("cl_max", cl_max, torch.float32, (c, 3))))
-    key = torch.empty(r, dtype=torch.int64, device=dev)
+    key = torch.empty(r, dtype=torch.int32, device=dev)
     lib = nvcc.load("sweep_prep")
     _launch_prep("sweep_key", dev, lambda stream: lib.sweep_key_launch(
         origin.data_ptr(), direction.data_ptr(), mask.data_ptr(),

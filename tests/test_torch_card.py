@@ -28,6 +28,8 @@ repository's conftest (which imports jax):
     python -m pytest --noconftest -m cuda tests/test_torch_card.py
 """
 
+from types import SimpleNamespace
+
 import numpy as np
 import pytest
 import torch
@@ -177,6 +179,8 @@ def test_blocks_beyond_the_limit_are_refused():
 
 
 PREP_BLOCKS = [256, 512, 1024, 128]
+PREP_SYNTHETIC = ["masked warps", "one live ray", "all dead", "one cluster",
+                  "45 clusters", "ties", "max clusters"]
 
 
 @pytest.fixture(scope="module")
@@ -200,27 +204,82 @@ def _prep_cases(dev, seed):
         yield n, tsweep.pad_cast(o, d, mask, anyhit)
 
 
+def _prep_synthetic(case, dev):
+    """Boxes (cl_min, cl_max) and 8,192 rays (64 tiles) of a synthetic
+    case of sweep_spans's tile minima: warps partly and wholly masked;
+    one live ray a tile; tiles with no live ray and a tile whose live rays
+    miss every box; C = 1 and C = 45 (no multiple of 32 or 4); 150 equal
+    boxes among 300, so many tile minima tie (the rays inside them at
+    +0.0) and the stable order decides; C = MAX_CLUSTERS overlapping
+    boxes."""
+    rng = np.random.default_rng(PREP_SYNTHETIC.index(case) + 11)
+    c = {"one cluster": 1, "45 clusters": 45, "ties": 300,
+         "max clusters": tsweep.MAX_CLUSTERS}.get(case, 484)
+    lo = rng.uniform(-3, 3, (c, 3)).astype(np.float32)
+    hi = lo + rng.uniform(0.2, 1.5, (c, 3)).astype(np.float32)
+    if case == "ties":
+        lo[::2], hi[::2] = lo[0], hi[0]
+    if case == "max clusters":
+        lo = (np.arange(c, dtype=np.float32)[:, None] * 1e-3
+              + np.zeros((1, 3), np.float32))
+        hi = lo + 1
+    n = 8192
+    i = np.arange(n)
+    o = rng.normal(0, 2.0, (n, 3)).astype(np.float32)
+    d = rng.normal(0, 1.0, (n, 3)).astype(np.float32)
+    if case == "ties":   # a quarter of the rays start inside the equal boxes
+        o[::4] = (lo[0] + hi[0]) / 2
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    mask = rng.random(n) >= 0.2
+    if case == "masked warps":
+        w = i // 32
+        mask = np.where(w % 4 == 1, False,
+                        np.where(w % 4 == 2, True, (i % 32) % 3 != 0))
+    elif case == "one live ray":
+        mask = i % tsweep.TILE_R == 77
+    elif case == "all dead":
+        mask = (i // tsweep.TILE_R) % 2 == 1
+        miss = (i // tsweep.TILE_R) == 3   # live, and they miss every box
+        o[miss] = 100.0
+        d[miss] = np.float32(1 / np.sqrt(3))
+    anyhit = rng.random(n) < 0.4
+    t = lambda x: torch.tensor(x, device=dev)
+    return t(lo), t(hi), [(n, tsweep.pad_cast(t(o), t(d), t(mask),
+                                              t(anyhit)))]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("t_blk", PREP_BLOCKS)
-def test_prep_kernels_equal_plain(t_blk, loong_scale_scene):
+@pytest.mark.parametrize("case", PREP_BLOCKS + PREP_SYNTHETIC)
+def test_prep_kernels_equal_plain(case, loong_scale_scene):
     """sweep_key and sweep_spans equal their plain versions on every
-    output (torch.equal: the same values, -0.0 equal to +0.0), and
+    output (torch.equal: the same values, -0.0 equal to +0.0; the key
+    int32), on the main path's scene cut into blocks of 256, 512, 1,024
+    and 128 and on the synthetic cases of _prep_synthetic (each also with
+    the rays in their own order, so its tiles stay as built), and
     sweep_inputs on the card launches both and calls neither plain
     version."""
     dev = _card()
-    scene = loong_scale_scene.build(cluster_size=t_blk, device=dev)
-    lo, hi = scene.cl_aabb_min, scene.cl_aabb_max
-    assert lo.shape[0] == {256: 484, 512: 243, 1024: 121}.get(
-        t_blk, lo.shape[0]) and (t_blk != 128 or lo.shape[0] > 512)
-    for n, (o, d, mask, anyhit) in _prep_cases(dev, t_blk):
-        label = f"T {t_blk}, {lo.shape[0]} clusters, {n} rays"
+    if isinstance(case, int):
+        scene = loong_scale_scene.build(cluster_size=case, device=dev)
+        lo, hi = scene.cl_aabb_min, scene.cl_aabb_max
+        assert lo.shape[0] == {256: 484, 512: 243, 1024: 121}.get(
+            case, lo.shape[0]) and (case != 128 or lo.shape[0] > 512)
+        cases = _prep_cases(dev, case)
+    else:
+        lo, hi, cases = _prep_synthetic(case, dev)
+        scene = SimpleNamespace(
+            cl_aabb_min=lo, cl_aabb_max=hi,
+            cl_trifeat=torch.zeros((lo.shape[0], 16, 4), device=dev))
+    for n, (o, d, mask, anyhit) in cases:
+        label = f"{case}, {lo.shape[0]} clusters, {n} rays"
         key = tsweep.sweep_key(o, d, mask, lo, hi)
         want = tsweep.sweep_key_plain(o, d, mask, lo, hi)
         torch.cuda.synchronize()
+        assert key.dtype == want.dtype == torch.int32
         assert torch.equal(key, want), \
             f"{label}: key differs on {int((key != want).sum())} rays"
         perms = [torch.sort(key, stable=True).indices]
-        if n <= tsweep.TILE_R:
+        if n <= tsweep.TILE_R or not isinstance(case, int):
             perms.append(None)
         for perm in perms:
             got = tsweep.sweep_spans(o, d, mask, anyhit, perm, lo, hi)
