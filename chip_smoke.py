@@ -34,7 +34,13 @@ when torch sees no CUDA device, and when anything below fails:
     on the blocks of 512 and 1,024, each timed by CUDA-graph replays
     beside its plain version, the stable torch.sort of the keys and its
     bound (probes/prep_kernels.py's run_case), and the SASS instructions
-    per (ray, cluster) pair of each kernel's slab-test loop by pipe;
+    per (ray, cluster) pair of each kernel's slab-test loop by pipe; then
+    past the 8,192 clusters sweep_spans holds in shared memory (its
+    sorted-run path, sweep_runs): 8,193 boxes that every ray enters (every
+    tile minimum finite), and the primary cast and pair on the scene
+    rebuilt in blocks of 8 (14,172 clusters), the same way, and K1 on that
+    primary cast and pair against sweep_plain (every hit and triangle
+    equal);
  4. K2 against its plain version at the schedule path's shapes: the same
     primary batch and the first bounce's bounce cast, with spans / nspan
     from the tracer's real votes; every round's launch is compared, the
@@ -50,7 +56,9 @@ when torch sees no CUDA device, and when anything below fails:
     plain versions never called;
  6. card against CPU: render_radiance at 128x64, 2 spp, 8 bounces, on the
     card (kernel) and on the CPU (plain version), held to the hardware
-    lane's image criterion (tests/test_tpu.py:57-60);
+    lane's image criterion (tests/test_tpu.py:57-60); then the same on
+    phase 3's blocks of 8, where sweep_runs prepares every cast
+    (sweep_spans launched, no plain version called on the card);
  7. the schedule render: the same frame with cast_backend="schedule", one
     warm-up and one timed pass; K2 must be launched, its plain version and
     K1 never; then the schedule image against the sweep image on the card
@@ -200,6 +208,8 @@ PEAK_HBM_BYTES = 3.35e12    # H100 SXM, HBM3
 CLI_RAYS_PER_TILE = 131072  # the CLI's default --rays-per-tile
 RANKS_TIMEOUT_S = 600       # a spawned group that takes longer fails
 PREP_RAYS = 131072          # the preparation kernels' primary cast
+SMALL_T = 8                 # blocks of 8: 14,172 clusters, past the
+                            # preparation's shared-memory path
 PORT = "opengl_ray_tracing_framework_tpu_torch"
 EXPECTED_KERNELS = {"sweep", "sweep_prep", "cluster_intersect", "probe_copy",
                     "probe_gather", "probe_smem", "probe_stream"}
@@ -1451,6 +1461,20 @@ def main() -> int:
     prep_ones = torch.ones(PREP_RAYS, dtype=torch.bool, device=dev)
     prep_primary = (prep_o, prep_d, prep_ones, torch.zeros_like(prep_ones))
 
+    # past the clusters sweep_spans holds in shared memory (sweep_runs):
+    # boxes that every ray enters (every tile minimum finite) and the scene
+    # rebuilt in blocks of SMALL_T triangles
+    t0 = time.perf_counter()
+    small_scene = host_scene.build(cluster_size=SMALL_T)
+    n_small = small_scene.cl_trifeat.shape[0]
+    print(f"scene: rebuilt in {n_small} clusters of {SMALL_T} in "
+          f"{time.perf_counter() - t0:.2f} s")
+    if n_small <= sw.SMEM_CLUSTERS:
+        fail(f"blocks of {SMALL_T}: {n_small} clusters, not past "
+             f"{sw.SMEM_CLUSTERS}")
+    finite_boxes, finite_rays = prep_kernels.finite_case(dev)
+    finite_name = (f"{finite_boxes.cl_aabb_min.shape[0]} clusters, every "
+                   "minimum finite")
     for name, sc, rays in (
             ("primary", scene, prep_primary),
             ("pair", scene, merged(captured[0])),
@@ -1459,15 +1483,29 @@ def main() -> int:
             *((f"{cast}, T {t_wide}", wide_scenes[t_wide], rays)
               for t_wide in WIDE_T
               for cast, rays in (("primary", prep_primary),
-                                 ("pair", merged(captured[0]))))):
+                                 ("pair", merged(captured[0])))),
+            (finite_name, finite_boxes, finite_rays),
+            (f"primary, T {SMALL_T}", small_scene, prep_primary),
+            (f"pair, T {SMALL_T}", small_scene, merged(captured[0]))):
         res = prep_kernels.run_case(name, sc, rays, plain=True)
         if res["key_dtype"] != torch.int32:
             fail(f"prep {name}: the key is {res['key_dtype']}, not "
                  "torch.int32")
+        if name == finite_name and res["nspan_min"] != res["clusters"]:
+            fail(f"prep {name}: a tile minimum is INF")
         for kname, cases in prep.items():
             cases[name] = res[kname]
         if name == "pair":
             prep_kernels.sass_report(res["pairs"])
+    del finite_boxes, finite_rays
+    # K1 on the span lists of those clusters (the primary cast's tiles
+    # overlap one cluster each; the pair's walk up to hundreds)
+    for name, rays in (("primary", prep_primary),
+                       ("pair", merged(captured[0]))):
+        kargs, _ = sw.sweep_inputs(small_scene, *rays)
+        k1_case(f"{name}, T {SMALL_T}", kargs, int(rays[2].sum()),
+                small_scene.cl_slot2tri.long(), strict=True)
+    del kargs
 
     # 4. K2 vs plain at the schedule path's shapes: every round of the
     # primary cast and of the first bounce's bounce cast is compared; the
@@ -1663,6 +1701,29 @@ def main() -> int:
     compare_images("parity card vs cpu", sweep_small, cpu_img,
                    f"128x64, 2 spp, {BOUNCES} bounces | card {gpu_s:.2f} s, "
                    f"cpu {cpu_s:.2f} s | ")
+    # the same on phase 3's blocks of SMALL_T: every cast of the card's
+    # render prepared by sweep_runs
+    sw.sweep_spans.launches = sw.sweep_key_plain.calls = 0
+    sw.sweep_spans_plain.calls = sw.sweep_plain.calls = 0
+    t0 = time.perf_counter()
+    small_img = ortf.render_radiance(small_scene, cam_small, small, spp=2)
+    torch.cuda.synchronize()
+    gpu_s = time.perf_counter() - t0
+    launched = sw.sweep_spans.launches
+    plain = (sw.sweep_key_plain.calls + sw.sweep_spans_plain.calls
+             + sw.sweep_plain.calls)
+    t0 = time.perf_counter()
+    cpu_img = ortf.render_radiance(small_scene.to("cpu"), cam_cpu, small,
+                                   spp=2)
+    cpu_s = time.perf_counter() - t0
+    compare_images(f"parity card vs cpu, {n_small} clusters", small_img,
+                   cpu_img,
+                   f"128x64, 2 spp, {BOUNCES} bounces | card {gpu_s:.2f} s "
+                   f"(sweep_spans launches {launched}, plain calls {plain}),"
+                   f" cpu {cpu_s:.2f} s | ")
+    if launched <= 0 or plain:
+        fail(f"the render on {n_small} clusters launched sweep_spans "
+             f"{launched} times and called a plain version {plain} times")
 
     # 7. the schedule render
     torch.cuda.synchronize()

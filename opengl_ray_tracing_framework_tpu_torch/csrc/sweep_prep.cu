@@ -50,9 +50,26 @@
 //   64-bit keys (the float's bits above the index) and sort only those: a
 //   tile overlaps few clusters, so the bitonic sort runs on one warp over
 //   at most 64 keys in most tiles, and the index in the low bits makes it
-//   the stable sort. The INF entries follow in index order. C is bounded
-//   by the shared memory of the rows and keys: MAX_CLUSTERS (ops/sweep.py
-//   refuses more).
+//   the stable sort. The INF entries follow in index order. This path
+//   holds all C tile minima and keys in shared memory, so it takes C up to
+//   SMEM_CLUSTERS (ops/sweep.py SMEM_CLUSTERS).
+//
+//   sweep_runs: sweep_spans for C > SMEM_CLUSTERS. The same CTA of TILE_R
+//   rays, the same rays and boxes, the same slab test once per pair, but
+//   the clusters pass in runs of RUN_CLUSTERS: each run's warp rows, tile
+//   minima, compaction and bitonic sort are sweep_spans's, and the run is
+//   written, sorted, to a per-tile row of a (G, C) uint64 scratch in global
+//   memory (the run's finite keys, then its INF clusters in index order as
+//   keys with INF's bits), at the run's own cluster offset. The ray's cap
+//   folds across every run. Then a rank merge: every key is unique (the
+//   cluster index is its low word), so a finite key's place in the tile's
+//   list is its place in its run plus, for each other run, the count of
+//   keys below it (a binary search of that run's row, from L2); an INF
+//   cluster's place is nf + the INF clusters before it, which each run's
+//   finite count (a binary search for INF's bits) gives. Exact and stable
+//   by construction, and one CTA owns a tile, so nothing syncs across
+//   CTAs. Runs of 2,048 clusters keep the CTA at 60 KB of shared memory,
+//   three CTAs an SM.
 //
 // Exactness: every step rounds as the eager torch version does on the
 // card. No fast math (utils/nvcc.py passes none): 1 / d is IEEE division,
@@ -74,7 +91,8 @@ constexpr int KEY_THREADS = 128;      // sweep_key's threads per CTA
 constexpr int KEY_RAYS = 2;           // sweep_key's rays per thread
 constexpr int TILE_R = 128;           // rays per tile: ops/sweep.py TILE_R
 constexpr int WARPS = TILE_R / 32;
-constexpr int MAX_CLUSTERS = 8192;    // ops/sweep.py MAX_CLUSTERS
+constexpr int SMEM_CLUSTERS = 8192;   // ops/sweep.py SMEM_CLUSTERS
+constexpr int RUN_CLUSTERS = 2048;    // sweep_runs's clusters a run
 constexpr int N_FEAT = 16;            // ray feature row [o, d, o x d, 1, 0]
 constexpr int BEST_W = 8;             // record [t, slot, inside, cap, anyhit]
 constexpr float INF = 114514.0f;      // ops/intersect.py INF
@@ -91,10 +109,18 @@ struct Ray { float ox, oy, oz, ix, iy, iz; };
 
 // A chunk of boxes: min x, y, z, max x, y, z, each an array of CHUNK.
 struct Boxes { float v[6][CHUNK]; };
-// sweep_spans at MAX_CLUSTERS: its keys and rows, its boxes and counts
-static_assert(MAX_CLUSTERS * (8 + 4 * WARPS) + sizeof(Boxes) + 4 * WARPS
+// sweep_spans at SMEM_CLUSTERS: its keys and rows, its boxes and counts
+static_assert(SMEM_CLUSTERS * (8 + 4 * WARPS) + sizeof(Boxes) + 4 * WARPS
                   <= 232448,
               "sweep_spans's shared memory exceeds the 227 KB a CTA may use");
+// a power of two, so a run's keys sort in RUN_CLUSTERS slots; a run fits
+// in sweep_spans's budget
+static_assert(RUN_CLUSTERS <= SMEM_CLUSTERS &&
+                  (RUN_CLUSTERS & (RUN_CLUSTERS - 1)) == 0,
+              "RUN_CLUSTERS must be a power of two <= SMEM_CLUSTERS");
+// the least key of an INF minimum: every finite minimum's key is below it
+constexpr unsigned long long INF_KEY =
+    static_cast<unsigned long long>(INF_BITS) << 32;
 
 // 1 / d with |d| < 1e-12 replaced by +-1e-12 (the sign of d; +0 for -0.0).
 __device__ __forceinline__ float reciprocal(float d) {
@@ -385,6 +411,179 @@ sweep_spans_kernel(const float* __restrict__ origin,
   rec[1] = make_float4(anyhit[src] ? 1.0f : 0.0f, 0.0f, 0.0f, 0.0f);
 }
 
+// The count of a[0, n) below x, a ascending (read through L2: the CTA
+// wrote the row in this launch).
+__device__ __forceinline__ int count_below(const unsigned long long* a,
+                                           int n, unsigned long long x) {
+  int lo = 0, hi = n;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (__ldcg(a + mid) < x) lo = mid + 1; else hi = mid;
+  }
+  return lo;
+}
+
+__global__ void __launch_bounds__(TILE_R)
+sweep_runs_kernel(const float* __restrict__ origin,
+                  const float* __restrict__ direction,
+                  const bool* __restrict__ mask,
+                  const bool* __restrict__ anyhit,
+                  const long long* __restrict__ perm,
+                  const float* __restrict__ cl_min,
+                  const float* __restrict__ cl_max, int n_clusters,
+                  int* __restrict__ nspan, int* __restrict__ spans,
+                  float* __restrict__ tile_sorted,
+                  float* __restrict__ rayfeat, float* __restrict__ best,
+                  unsigned long long* runs) {
+  // keys: one run's finite keys (RUN_CLUSTERS); rows: each warp's minima
+  // of the run; the first row then holds the run's tile minima (tmin) and
+  // in place its clusters whose minimum is INF, in index order
+  extern __shared__ __align__(16) unsigned long long keys[];
+  unsigned* rows = reinterpret_cast<unsigned*>(keys + RUN_CLUSTERS);
+  unsigned* tmin = rows;
+  __shared__ __align__(16) Boxes boxes;
+  __shared__ int warp_count[WARPS];
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int c = n_clusters;
+  const long long row = static_cast<long long>(blockIdx.x) * TILE_R + t;
+  const long long src = perm != nullptr ? perm[row] : row;
+  const float o[3] = {origin[3 * src], origin[3 * src + 1],
+                      origin[3 * src + 2]};
+  const float d[3] = {direction[3 * src], direction[3 * src + 1],
+                      direction[3 * src + 2]};
+  const bool live = mask[src];
+  const Ray ray = make_ray(o, d);
+
+  float4* feat = reinterpret_cast<float4*>(rayfeat + row * N_FEAT);
+  feat[0] = make_float4(o[0], o[1], o[2], d[0]);
+  feat[1] = make_float4(d[1], d[2],
+                        __fmaf_rn(o[1], d[2], -__fmul_rn(o[2], d[1])),
+                        __fmaf_rn(o[2], d[0], -__fmul_rn(o[0], d[2])));
+  feat[2] = make_float4(__fmaf_rn(o[0], d[1], -__fmul_rn(o[1], d[0])), 1.0f,
+                        0.0f, 0.0f);
+  feat[3] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+
+  const long long base = static_cast<long long>(blockIdx.x) * c;
+  int far_bits = -1;   // the ray's farthest finite entry distance; -1: none
+  if (!__syncthreads_or(live)) {
+    // no live ray: every tile minimum is INF, in index order
+    for (int k = t; k < c; k += TILE_R) {
+      spans[base + k] = k;
+      tile_sorted[base + k] = INF;
+    }
+    if (t == 0) nspan[blockIdx.x] = 0;
+  } else {
+    const bool warp_live = __any_sync(FULL, live);
+    unsigned* row_w = rows + warp * RUN_CLUSTERS;
+    unsigned long long* tile_runs = runs + base;
+    for (int first = 0; first < c; first += RUN_CLUSTERS) {
+      const int m = min(RUN_CLUSTERS, c - first);
+      __syncthreads();   // the previous run's rows and keys are read
+      if (!warp_live)
+        for (int k = lane; k < m; k += 32) row_w[k] = INF_BITS;
+      for (int lo = 0; lo < m; lo += CHUNK) {
+        const int n = min(CHUNK, m - lo);
+        __syncthreads();   // the previous chunk is read
+        stage_boxes(cl_min, cl_max, first + lo, n, boxes);
+        __syncthreads();
+        if (!warp_live) continue;
+        for_each_box(boxes, n, [&](int k, const Box& b) {
+          float t0, t1;
+          slabs(b, ray, t0, t1);
+          const unsigned e =
+              live && enters(t0, t1) ? entry_bits(t0) : INF_BITS;
+          if (e < INF_BITS) far_bits = max(far_bits, static_cast<int>(e));
+          row_w[lo + k] = __reduce_min_sync(FULL, e);   // every lane
+        });
+      }
+      __syncthreads();
+      for (int k = t; k < m; k += TILE_R) {
+        unsigned v = rows[k];
+#pragma unroll
+        for (int w = 1; w < WARPS; ++w)
+          v = min(v, rows[w * RUN_CLUSTERS + k]);
+        tmin[k] = v;
+      }
+      __syncthreads();
+
+      // compact the run's finite minima into keys (the float's bits above
+      // the cluster's index) and the rest into tmin, both in index order
+      int nf = 0;
+      for (int lo = 0; lo < m; lo += TILE_R) {
+        const int k = lo + t;
+        const unsigned v = k < m ? tmin[k] : INF_BITS;
+        const bool fin = v < INF_BITS;
+        const unsigned ballot = __ballot_sync(FULL, fin);
+        if (lane == 0) warp_count[warp] = __popc(ballot);
+        __syncthreads();   // tmin[lo, lo + 128) is read
+        int before = nf + __popc(ballot & ((1u << lane) - 1u)), total = 0;
+#pragma unroll
+        for (int w = 0; w < WARPS; ++w) {
+          const int n_w = warp_count[w];
+          before += w < warp ? n_w : 0;
+          total += n_w;
+        }
+        if (fin)
+          keys[before] = (static_cast<unsigned long long>(v) << 32) |
+                         static_cast<unsigned>(first + k);
+        else if (k < m)
+          tmin[k - before] = static_cast<unsigned>(first + k);
+        nf += total;
+        __syncthreads();   // warp_count is read
+      }
+      int n_sort = 1;
+      while (n_sort < nf) n_sort <<= 1;
+      for (int j = nf + t; j < n_sort; j += TILE_R) keys[j] = ~0ULL;
+      __syncthreads();
+      if (n_sort > WARP_SORT) {
+        bitonic(keys, n_sort, t, TILE_R, true);
+      } else if (n_sort > 1 && warp == 0) {
+        bitonic(keys, n_sort, lane, 32, false);
+      }
+      __syncthreads();
+      // the sorted run: its finite keys, then its INF clusters as keys
+      for (int p = t; p < m; p += TILE_R)
+        tile_runs[first + p] = p < nf ? keys[p] : (INF_KEY | tmin[p - nf]);
+    }
+    __syncthreads();   // every run is written
+
+    int nf = 0;   // the tile's finite minima: each run's below INF_KEY
+    for (int first = 0; first < c; first += RUN_CLUSTERS)
+      nf += count_below(tile_runs + first, min(RUN_CLUSTERS, c - first),
+                        INF_KEY);
+    int nf_before = 0;   // finite minima in the runs before this one
+    for (int first = 0; first < c; first += RUN_CLUSTERS) {
+      const int m = min(RUN_CLUSTERS, c - first);
+      const unsigned long long* own = tile_runs + first;
+      const int nf_run = count_below(own, m, INF_KEY);
+      for (int p = t; p < m; p += TILE_R) {
+        const unsigned long long kv = __ldcg(own + p);
+        int at;
+        if (p < nf_run) {
+          at = p;
+          for (int other = 0; other < c; other += RUN_CLUSTERS)
+            if (other != first)
+              at += count_below(tile_runs + other,
+                                min(RUN_CLUSTERS, c - other), kv);
+        } else {
+          // after every finite minimum, behind the INF clusters before it
+          at = nf + (first - nf_before) + (p - nf_run);
+        }
+        spans[base + at] = static_cast<int>(kv & 0xffffffffULL);
+        tile_sorted[base + at] =
+            __uint_as_float(static_cast<unsigned>(kv >> 32));
+      }
+      nf_before += nf_run;
+    }
+    if (t == 0) nspan[blockIdx.x] = nf;
+  }
+
+  const float far = far_bits < 0 ? -INF : __int_as_float(far_bits);
+  float4* rec = reinterpret_cast<float4*>(best + row * BEST_W);
+  rec[0] = make_float4(live ? INF : -INF, -1.0f, 0.0f, nextafterf(far, INF));
+  rec[1] = make_float4(anyhit[src] ? 1.0f : 0.0f, 0.0f, 0.0f, 0.0f);
+}
+
 int pow2_at_least(int n) {
   int p = 1;
   while (p < n) p <<= 1;
@@ -396,14 +595,32 @@ size_t spans_smem(int n_clusters) {
          WARPS * n_clusters * sizeof(unsigned);
 }
 
-bool spans_smem_set = false;   // this library's kernel may take MAX_CLUSTERS
+// each kernel's opt-in to its dynamic shared memory, set at its first launch
+bool spans_smem_set = false;   // sweep_spans may take SMEM_CLUSTERS
+bool runs_smem_set = false;    // sweep_runs may take spans_smem(RUN_CLUSTERS)
+
+// Raise `kernel`'s dynamic shared memory limit to `bytes` once (`set`).
+template <class K>
+cudaError_t allow_smem(K kernel, size_t bytes, bool& set) {
+  if (set) return cudaSuccess;
+  const cudaError_t rc = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(bytes));
+  if (rc != cudaSuccess) {
+    cudaGetLastError();
+    return rc;
+  }
+  set = true;
+  return cudaSuccess;
+}
 
 }  // namespace
 
 extern "C" int sweep_prep_tile_rays() { return TILE_R; }
 
-// The most clusters sweep_spans takes (its shared-memory minima and keys).
-extern "C" int sweep_prep_max_clusters() { return MAX_CLUSTERS; }
+// The most clusters sweep_spans holds in shared memory; above it the
+// sorted runs of sweep_runs.
+extern "C" int sweep_prep_smem_clusters() { return SMEM_CLUSTERS; }
 
 // origin, direction (R, 3) f32; mask (R,) bool; cl_min, cl_max (C, 3) f32
 // -> key (R,) int32. Launches on `stream` and returns the CUDA error of the
@@ -422,32 +639,36 @@ extern "C" int sweep_key_launch(const float* origin, const float* direction,
 
 // origin, direction (R, 3) f32, mask, anyhit (R,) bool, perm (R,) int64 or
 // null (kernel order = input order), R = n_tiles * TILE_R; cl_min, cl_max
-// (C, 3) f32, 1 <= C <= MAX_CLUSTERS -> nspan (G,) i32, spans (G, C) i32,
-// tile_sorted (G, C) f32, rayfeat (R, 16) f32, best (R, 8) f32, the last
-// two 16-byte aligned. Launches on `stream` and returns the first CUDA
-// error (0: launched).
+// (C, 3) f32, C >= 1 -> nspan (G,) i32, spans (G, C) i32, tile_sorted
+// (G, C) f32, rayfeat (R, 16) f32, best (R, 8) f32, the last two 16-byte
+// aligned. C <= SMEM_CLUSTERS launches sweep_spans (runs unused, may be
+// null); a larger C launches sweep_runs, whose scratch `runs` is (G, C)
+// uint64. Launches on `stream` and returns the first CUDA error (0:
+// launched).
 extern "C" int sweep_spans_launch(const float* origin, const float* direction,
                                   const bool* mask, const bool* anyhit,
                                   const long long* perm, const float* cl_min,
                                   const float* cl_max, int* nspan, int* spans,
                                   float* tile_sorted, float* rayfeat,
-                                  float* best, int n_tiles, int n_clusters,
-                                  void* stream) {
+                                  float* best, unsigned long long* runs,
+                                  int n_tiles, int n_clusters, void* stream) {
   if (n_tiles <= 0) return static_cast<int>(cudaGetLastError());
-  if (n_clusters < 1 || n_clusters > MAX_CLUSTERS)
+  if (n_clusters < 1 || (n_clusters > SMEM_CLUSTERS && runs == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (!spans_smem_set) {
-    const cudaError_t rc = cudaFuncSetAttribute(
-        sweep_spans_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(spans_smem(MAX_CLUSTERS)));
-    if (rc != cudaSuccess) {
-      cudaGetLastError();
-      return static_cast<int>(rc);
-    }
-    spans_smem_set = true;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (n_clusters > SMEM_CLUSTERS) {
+    const size_t smem = spans_smem(RUN_CLUSTERS);
+    const cudaError_t rc = allow_smem(sweep_runs_kernel, smem, runs_smem_set);
+    if (rc != cudaSuccess) return static_cast<int>(rc);
+    sweep_runs_kernel<<<n_tiles, TILE_R, smem, st>>>(
+        origin, direction, mask, anyhit, perm, cl_min, cl_max, n_clusters,
+        nspan, spans, tile_sorted, rayfeat, best, runs);
+    return static_cast<int>(cudaGetLastError());
   }
-  sweep_spans_kernel<<<n_tiles, TILE_R, spans_smem(n_clusters),
-                       static_cast<cudaStream_t>(stream)>>>(
+  const cudaError_t rc = allow_smem(
+      sweep_spans_kernel, spans_smem(SMEM_CLUSTERS), spans_smem_set);
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  sweep_spans_kernel<<<n_tiles, TILE_R, spans_smem(n_clusters), st>>>(
       origin, direction, mask, anyhit, perm, cl_min, cl_max, n_clusters,
       pow2_at_least(n_clusters), nspan, spans, tile_sorted, rayfeat, best);
   return static_cast<int>(cudaGetLastError());

@@ -54,8 +54,9 @@ BEST_W = 8            # record [t, slot, inside, cap, anyhit, 0, 0, 0]
 EPS_ROW = 10          # trifeat row carrying E in the A-group columns
 MAX_BLOCK_TRIS = 4096  # widest cluster block the kernels take (a 12-bit
                        # lane in their keys); csrc/mt_span.cuh agrees
-MAX_CLUSTERS = 8192   # most clusters whose tile minima and keys
-                      # sweep_spans holds in shared memory;
+SMEM_CLUSTERS = 8192  # most clusters whose tile minima and keys
+                      # sweep_spans holds in shared memory (more take
+                      # sorted runs in global scratch);
                       # csrc/sweep_prep.cu agrees
 _DEAD_KEY = 1 << 30   # sort key for rays that trace nothing
 _SLAB_CHUNK = 128 * TILE_R   # rays per slab-test chunk
@@ -347,21 +348,21 @@ def _declare_prep(lib):
     """Declare the C signatures of a loaded csrc/sweep_prep.cu."""
     lib.sweep_prep_tile_rays.argtypes = []
     lib.sweep_prep_tile_rays.restype = ctypes.c_int
-    lib.sweep_prep_max_clusters.argtypes = []
-    lib.sweep_prep_max_clusters.restype = ctypes.c_int
+    lib.sweep_prep_smem_clusters.argtypes = []
+    lib.sweep_prep_smem_clusters.restype = ctypes.c_int
     lib.sweep_key_launch.argtypes = ([ctypes.c_void_p] * 6
                                      + [ctypes.c_int] * 2 + [ctypes.c_void_p])
     lib.sweep_key_launch.restype = ctypes.c_int
-    lib.sweep_spans_launch.argtypes = ([ctypes.c_void_p] * 12
+    lib.sweep_spans_launch.argtypes = ([ctypes.c_void_p] * 13
                                        + [ctypes.c_int] * 2
                                        + [ctypes.c_void_p])
     lib.sweep_spans_launch.restype = ctypes.c_int
     if lib.sweep_prep_tile_rays() != TILE_R:
         raise RuntimeError(
             "csrc/sweep_prep.cu TILE_R differs from ops/sweep.py")
-    if lib.sweep_prep_max_clusters() != MAX_CLUSTERS:
+    if lib.sweep_prep_smem_clusters() != SMEM_CLUSTERS:
         raise RuntimeError(
-            "csrc/sweep_prep.cu MAX_CLUSTERS differs from ops/sweep.py")
+            "csrc/sweep_prep.cu SMEM_CLUSTERS differs from ops/sweep.py")
     return lib
 
 
@@ -386,23 +387,22 @@ def _launch_prep(fn, dev, call):
 
 def _prep_device(fn, origin, cl_min):
     """The device of a preparation call: 'cpu' (the plain version) or a
-    CUDA device whose cluster count the kernel takes."""
+    CUDA device (the kernel, which takes any cluster count C >= 1)."""
     dev = origin.device
     if dev.type == "cpu":
         return dev
     if dev.type != "cuda":
         raise NotImplementedError(f"the {fn} kernel has no {dev} version")
-    c = cl_min.shape[0]
-    if not 1 <= c <= MAX_CLUSTERS:
-        raise ValueError(f"{fn}: {c} clusters; the kernel takes 1 to "
-                         f"{MAX_CLUSTERS}")
+    if cl_min.shape[0] < 1:
+        raise ValueError(f"{fn}: no clusters; the kernel takes C >= 1")
     return dev
 
 
 def sweep_key(origin, direction, mask, cl_min, cl_max):
     """The coherence key of each ray: csrc/sweep_prep.cu's sweep_key on a
-    CUDA tensor (up to MAX_CLUSTERS clusters; ValueError beyond),
-    sweep_key_plain on a CPU tensor; the same (R,) int32 values.
+    CUDA tensor (any cluster count: it stages the boxes in chunks),
+    sweep_key_plain on a CPU tensor; the same (R,) int32 values, which
+    hold nearest * 128 + 127 for up to 2^24 clusters, as JAX's _sort_key.
     `sweep_key.launches` counts kernel launches."""
     dev = _prep_device("sweep_key", origin, cl_min)
     if dev.type == "cpu":
@@ -428,9 +428,11 @@ sweep_key.launches = 0
 
 def sweep_spans(origin, direction, mask, anyhit, perm, cl_min, cl_max):
     """Span lists, ray features and records of rays in kernel order:
-    csrc/sweep_prep.cu's sweep_spans on a CUDA tensor (up to MAX_CLUSTERS
-    clusters; ValueError beyond), sweep_spans_plain on a CPU tensor; same
-    contract and values. `sweep_spans.launches` counts kernel launches."""
+    csrc/sweep_prep.cu on a CUDA tensor (sweep_spans for up to
+    SMEM_CLUSTERS clusters, its tile minima in shared memory; sweep_runs
+    above, through sorted runs in a (G, C) 64-bit scratch allocated here),
+    sweep_spans_plain on a CPU tensor; same contract and values.
+    `sweep_spans.launches` counts kernel launches."""
     dev = _prep_device("sweep_spans", origin, cl_min)
     if dev.type == "cpu":
         return sweep_spans_plain(origin, direction, mask, anyhit, perm,
@@ -453,13 +455,17 @@ def sweep_spans(origin, direction, mask, anyhit, perm, cl_min, cl_max):
     tile_sorted = torch.empty((g, c), dtype=torch.float32, device=dev)
     rayfeat = torch.empty((r, N_FEAT), dtype=torch.float32, device=dev)
     best = torch.empty((r, BEST_W), dtype=torch.float32, device=dev)
+    # sweep_runs's sorted runs, uint64 keys held as int64
+    runs = (torch.empty((g, c), dtype=torch.int64, device=dev)
+            if c > SMEM_CLUSTERS else None)
     lib = nvcc.load("sweep_prep")
     _launch_prep("sweep_spans", dev, lambda stream: lib.sweep_spans_launch(
         origin.data_ptr(), direction.data_ptr(), mask.data_ptr(),
         anyhit.data_ptr(), None if perm is None else perm.data_ptr(),
         cl_min.data_ptr(), cl_max.data_ptr(), nspan.data_ptr(),
         spans.data_ptr(), tile_sorted.data_ptr(), rayfeat.data_ptr(),
-        best.data_ptr(), g, c, stream))
+        best.data_ptr(), None if runs is None else runs.data_ptr(), g, c,
+        stream))
     sweep_spans.launches += 1
     return nspan, spans, tile_sorted, rayfeat, best
 

@@ -24,6 +24,15 @@ sweep pass of chip_smoke.py's frame (1024x512, 8 bounces, 1 spp, 65,536
 rays a batch) under torch.profiler after a warm pass: each kernel's device
 time and launches over the pass, beside the device's time in all kernels.
 
+With --past-smem it times the path for more clusters than sweep_spans
+holds in shared memory (sweep_runs): run_case on the same scene in blocks
+of 8 (14,172 clusters; the primary cast and the pair) and on 8,193 boxes
+that every ray enters (every tile minimum finite: each tile sorts and
+merges all of them); the peak device memory of one cast (sweep_inputs and
+K1) on 484 and on 14,172 clusters; and one render_pass of the bench's
+frame (1024x512, 8 bounces, 1 spp, 131,072 rays a batch) with the sweep
+tracer on each of the two, after a warm pass, fenced by a host copy.
+
 It uses only entry points every tree of the port has had since the
 preparation kernels came, so a copy of it runs in an older tree; two trees
 are compared only inside one call on one card, in turns (parent, change,
@@ -49,6 +58,8 @@ PRIMARY_RAYS = 131072
 PAIR_BATCH = 65536       # primary rays whose first bounce makes the pair
 DEEP_BOUNCE = 5          # the deep pair: the merged cast of bounce 4
 WIDE_T = (512, 1024)
+SMALL_T = 8              # blocks of 8: 14,172 clusters, past shared memory
+BENCH_TILE = 131072      # the bench's rays a batch
 PASS_BOUNCES = 8         # pass_profile's frame: chip_smoke.py's
 ALU_PER_CLOCK, FMA_PER_CLOCK, ISSUE_PER_CLOCK = 64, 128, 128   # per SM
 FMA_PIPE = {"FADD", "FMUL", "FFMA", "FADD32I", "FMUL32I", "FFMA32I", "IMAD",
@@ -66,9 +77,11 @@ _INSTR = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?"
 _LABEL = re.compile(r"^\s*(\.L_x_\d+):")
 
 
-def casts(device):
+def casts(device, blocks=WIDE_T):
     """{case: (scene, (origin, direction, mask, anyhit))} of the module's
-    casts, on the card."""
+    casts, on the card: the primary cast, the pair and the deep pair, then
+    the primary cast and the pair on the scene rebuilt in blocks of each
+    of `blocks` triangles."""
     from .. import Camera, RenderConfig, build_test_scene
     from ..models.hdr import make_gradient_hdr
     from ..models.material import preset_materials
@@ -110,7 +123,7 @@ def casts(device):
     out = {"primary": (scene, primary), "pair": (scene, merged(captured[0])),
            f"deep pair (bounce {DEEP_BOUNCE - 1})":
                (scene, merged(captured[-1]))}
-    for t_blk in WIDE_T:
+    for t_blk in blocks:
         wide = host.build(cluster_size=t_blk, device=device)
         out[f"primary, T {t_blk}"] = (wide, primary)
         out[f"pair, T {t_blk}"] = (wide, out["pair"][1])
@@ -121,8 +134,8 @@ def run_case(name, scene, rays, plain=False):
     """Hold sweep_key and sweep_spans to their plain versions on every
     output of one cast (padded as sweep_inputs pads it; RuntimeError if
     any differs), time each and print the case's line. Returns {"rays",
-    "live", "clusters", "tiles", "pairs", "key_dtype", "sort_ms",
-    "sweep_key": ..., "sweep_spans": ...}, each kernel's entry {"ms",
+    "live", "clusters", "tiles", "pairs", "key_dtype", "nspan_min",
+    "nspan_max", "sort_ms", "sweep_key": ..., "sweep_spans": ...}, each kernel's entry {"ms",
     "bound", "err"} (err 0.0: every output equal) and, with `plain`, the
     plain version's "plain_ms"."""
     o, d, m, a = sw.pad_cast(*rays)
@@ -147,6 +160,7 @@ def run_case(name, scene, rays, plain=False):
     r, c, live = o.shape[0], lo.shape[0], int(m.sum())
     out = dict(rays=r, live=live, clusters=c, tiles=r // sw.TILE_R,
                pairs=live * c, key_dtype=key.dtype,
+               nspan_min=int(want[1].min()), nspan_max=int(want[1].max()),
                sort_ms=cuda_ms(lambda: torch.sort(key, stable=True)))
     parts = []
     for kname, bound in zip(calls, bounds(args)[:2]):
@@ -169,15 +183,40 @@ def run_case(name, scene, rays, plain=False):
 
 def bounds(args):
     """(sweep_key's, sweep_spans's probes.prep_bound, pairs) on these
-    inputs: each input read once and each output written once."""
+    inputs: each input read once and each output written once, and past
+    SMEM_CLUSTERS clusters sweep_runs's (G, C) scratch of 8-byte keys
+    written once and read once."""
     o, _, m, _, lo, _ = args
     r, c, live = o.shape[0], lo.shape[0], int(m.sum())
     g = r // sw.TILE_R
     key_bytes = r * (24 + 1 + 4) + c * 24
     spans_bytes = (r * (24 + 2 + 8) + c * 24 + g * 4 + g * c * 8
                    + r * (16 + 8) * 4)
+    # a tree from before sweep_runs has no SMEM_CLUSTERS (and takes no more)
+    if c > getattr(sw, "SMEM_CLUSTERS", c):
+        spans_bytes += 2 * g * c * 8
     return (prep_bound(live * c, key_bytes), prep_bound(live * c, spans_bytes),
             live * c)
+
+
+def finite_case(device, n_rays=PRIMARY_RAYS):
+    """(boxes, rays) where every ray enters every box: SMEM_CLUSTERS + 1
+    unit cubes along the diagonal (cube k from k * 1e-3), rays along (1, 1,
+    1) from within 0.3 of (-1, -1, -1) on each axis (a line parallel to the
+    diagonal enters every such cube), so every tile minimum is finite and
+    each tile sorts and merges all of them. `boxes` has cl_aabb_min /
+    cl_aabb_max as a scene has."""
+    from types import SimpleNamespace
+
+    c = sw.SMEM_CLUSTERS + 1
+    lo = torch.arange(c, device=device, dtype=torch.float32)[:, None] \
+        * 1e-3 + torch.zeros((1, 3), device=device)
+    gen = torch.Generator(device=device).manual_seed(c)
+    o = torch.rand((n_rays, 3), generator=gen, device=device) * 0.6 - 1.3
+    d = torch.full((n_rays, 3), 3 ** -0.5, device=device)
+    ones = torch.ones(n_rays, dtype=torch.bool, device=device)
+    return (SimpleNamespace(cl_aabb_min=lo, cl_aabb_max=lo + 1),
+            (o, d, ones, torch.zeros_like(ones)))
 
 
 def sass_per_pair(lib: Path) -> dict:
@@ -324,17 +363,101 @@ def pass_profile(scene, device):
     return out
 
 
-def main():
+def cast_peak_gib(scene, rays):
+    """Peak device GiB of one sweep cast (sweep_inputs, then K1) on rays
+    already on the card, above what was allocated before it."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    args, _ = sw.sweep_inputs(scene, *rays)
+    sw.sweep(*args)
+    del args
+    torch.cuda.synchronize()
+    return (torch.cuda.max_memory_allocated() - before) / 2**30
+
+
+def bench_pass(scene, device):
+    """One render_pass of the bench's frame with the sweep tracer after a
+    warm pass: {"pass_s", "peak_gib", "k1_launches", "prep_launches",
+    "plain_calls"}, fenced by a host copy; RuntimeError if a plain
+    version ran."""
+    from .. import Camera, RenderConfig
+    from ..bench import counts
+    from ..render import init_render_state, render_pass
+
+    config = RenderConfig(width=1024, height=512, max_bounce=PASS_BOUNCES)
+    camera = Camera.make(aspect=2.0).to(device)
+    state = render_pass(scene, camera, init_render_state(config, device),
+                        config, BENCH_TILE)
+    float(state.accum[0, 0, 0])
+    torch.cuda.reset_peak_memory_stats()
+    before = counts()
+    prep = sw.sweep_spans.launches
+    t0 = time.perf_counter()
+    state = render_pass(scene, camera, state, config, BENCH_TILE)
+    float(state.accum[0, 0, 0])   # host copy: the pass has finished
+    out = {"pass_s": time.perf_counter() - t0,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "k1_launches": counts()[0] - before[0],
+           "prep_launches": sw.sweep_spans.launches - prep,
+           "plain_calls": counts()[2] - before[2],
+           "image_mean": state.accum.mean().item()}
+    if out["plain_calls"] or not out["k1_launches"]:
+        raise RuntimeError(f"bench pass: {out}")
+    return out
+
+
+def past_smem(device):
+    """The --past-smem cases: run_case (with the plain version's time) on
+    finite_case and on the 14,172-cluster casts, every tile minimum of
+    finite_case checked finite; cast_peak_gib of the primary cast and
+    bench_pass on 484 and 14,172 clusters. Prints a line a case; returns
+    the results."""
+    result = {"cases": {}, "cast_peak_gib": {}, "bench_pass": {}}
+    boxes, rays = finite_case(device)
+    name = f"{boxes.cl_aabb_min.shape[0]} clusters, every minimum finite"
+    res = run_case(name, boxes, rays, plain=True)
+    if res["nspan_min"] != res["clusters"]:
+        raise RuntimeError(f"prep {name}: a tile minimum is INF")
+    result["cases"][name] = res
+    cases = casts(device, blocks=(SMALL_T,))
+    for name in (f"primary, T {SMALL_T}", f"pair, T {SMALL_T}"):
+        result["cases"][name] = run_case(name, *cases[name], plain=True)
+    for scene, rays in (cases["primary"], cases[f"primary, T {SMALL_T}"]):
+        label = f"{scene.cl_aabb_min.shape[0]} clusters"
+        peak = result["cast_peak_gib"][label] = cast_peak_gib(scene, rays)
+        res = result["bench_pass"][label] = bench_pass(scene, device)
+        print(f"prep past-smem {label}: one primary cast of "
+              f"{rays[0].shape[0]} rays peaks {peak:.4f} GiB above its "
+              f"inputs | one bench pass (1024x512, {PASS_BOUNCES} bounces, "
+              f"{BENCH_TILE} rays a batch) {res['pass_s']:.3f} s, peak "
+              f"{res['peak_gib']:.4f} GiB, K1 launches "
+              f"{res['k1_launches']}, sweep_spans launches "
+              f"{res['prep_launches']}, plain calls {res['plain_calls']}, "
+              f"image mean {res['image_mean']:.6f}")
+    return result
+
+
+def main(argv=None):
+    import argparse
+
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--past-smem", action="store_true",
+                        help="time the path past SMEM_CLUSTERS clusters")
+    args = parser.parse_args(argv)
     dev = torch.device("cuda")
     print(device_line())
     result = {"device": device_line(), "cases": {}}
-    cases = casts(dev)
-    for name, (scene, rays) in cases.items():
-        res = run_case(name, scene, rays)
+    if args.past_smem:
+        result.update(past_smem(dev))
+    else:
+        cases = casts(dev)
+        for name, (scene, rays) in cases.items():
+            result["cases"][name] = run_case(name, scene, rays)
+        result.update(sass_report(result["cases"]["pair"]["pairs"]))
+        result["pass"] = pass_profile(cases["primary"][0], dev)
+    for res in result["cases"].values():
         res["key_dtype"] = str(res["key_dtype"])
-        result["cases"][name] = res
-    result.update(sass_report(result["cases"]["pair"]["pairs"]))
-    result["pass"] = pass_profile(cases["primary"][0], dev)
     print(json.dumps(result))
 
 

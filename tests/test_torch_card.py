@@ -7,8 +7,12 @@ copies) and 302 (no multiple of 4: hand-copied chunks), and the refusal of
 a block wider than the kernels' 4,096; K1's preparation kernels
 (csrc/sweep_prep.cu: sweep_key, sweep_spans) against sweep_key_plain and
 sweep_spans_plain on every output, on the 81,922-triangle scene in
-blocks of 256, 512, 1,024 and 128 (C = 484, 243, 121 and one over a
-chunk of 512 boxes), and the refusal of more than MAX_CLUSTERS clusters;
+blocks of 256, 512, 1,024, 128 and 8 (C = 484, 243, 121, one over a
+chunk of 512 boxes, and 14,172), at C = SMEM_CLUSTERS (the last count
+sweep_spans holds in shared memory) and above it (sweep_runs: sorted runs
+in global scratch, merged by rank) at one more, every tile minimum
+finite, and at 3 * SMEM_CLUSTERS + 5, and the whole merged cast on the
+14,172 clusters against the plain versions;
 the chained lookups (K4c-2,
 csrc/probe_gather.cu) on tables whose columns differ and the block sums
 (K4c-3, csrc/probe_stream.cu) for one and many rows of starts, and the
@@ -178,9 +182,11 @@ def test_blocks_beyond_the_limit_are_refused():
             tci.cluster_intersect_plain.calls) == calls
 
 
-PREP_BLOCKS = [256, 512, 1024, 128]
+PREP_BLOCKS = [256, 512, 1024, 128, 8]
 PREP_SYNTHETIC = ["masked warps", "one live ray", "all dead", "one cluster",
-                  "45 clusters", "ties", "max clusters"]
+                  "45 clusters", "ties", "max clusters",
+                  "past the shared memory", "many runs"]
+SMALL_BLOCK_CLUSTERS = 14172   # the 81,922 triangles in blocks of 8
 
 
 @pytest.fixture(scope="module")
@@ -210,16 +216,23 @@ def _prep_synthetic(case, dev):
     one live ray a tile; tiles with no live ray and a tile whose live rays
     miss every box; C = 1 and C = 45 (no multiple of 32 or 4); 150 equal
     boxes among 300, so many tile minima tie (the rays inside them at
-    +0.0) and the stable order decides; C = MAX_CLUSTERS overlapping
-    boxes."""
+    +0.0) and the stable order decides; C = SMEM_CLUSTERS overlapping
+    boxes, the most the shared-memory path holds; and the same boxes at
+    one more cluster (the sorted runs of sweep_runs), where one ray of
+    each tile runs along the boxes' diagonal, so every tile minimum is
+    finite (nf = C), beside a tile with no live ray and a masked warp;
+    and the same boxes at 3 * SMEM_CLUSTERS + 5 (twelve runs of 2,048
+    and one of five)."""
     rng = np.random.default_rng(PREP_SYNTHETIC.index(case) + 11)
     c = {"one cluster": 1, "45 clusters": 45, "ties": 300,
-         "max clusters": tsweep.MAX_CLUSTERS}.get(case, 484)
+         "max clusters": tsweep.SMEM_CLUSTERS,
+         "past the shared memory": tsweep.SMEM_CLUSTERS + 1,
+         "many runs": 3 * tsweep.SMEM_CLUSTERS + 5}.get(case, 484)
     lo = rng.uniform(-3, 3, (c, 3)).astype(np.float32)
     hi = lo + rng.uniform(0.2, 1.5, (c, 3)).astype(np.float32)
     if case == "ties":
         lo[::2], hi[::2] = lo[0], hi[0]
-    if case == "max clusters":
+    if case in ("max clusters", "past the shared memory", "many runs"):
         lo = (np.arange(c, dtype=np.float32)[:, None] * 1e-3
               + np.zeros((1, 3), np.float32))
         hi = lo + 1
@@ -242,6 +255,13 @@ def _prep_synthetic(case, dev):
         miss = (i // tsweep.TILE_R) == 3   # live, and they miss every box
         o[miss] = 100.0
         d[miss] = np.float32(1 / np.sqrt(3))
+    elif case == "past the shared memory":
+        along = i % tsweep.TILE_R == 5   # from (-1, -1, -1) along (1, 1, 1)
+        o[along] = -1.0
+        d[along] = np.float32(1 / np.sqrt(3))
+        tile, lane = i // tsweep.TILE_R, i % tsweep.TILE_R
+        mask = along | (mask & (lane // 32 != 2))   # warp 2 all masked
+        mask[tile == 3] = False
     anyhit = rng.random(n) < 0.4
     t = lambda x: torch.tensor(x, device=dev)
     return t(lo), t(hi), [(n, tsweep.pad_cast(t(o), t(d), t(mask),
@@ -262,7 +282,8 @@ def test_prep_kernels_equal_plain(case, loong_scale_scene):
     if isinstance(case, int):
         scene = loong_scale_scene.build(cluster_size=case, device=dev)
         lo, hi = scene.cl_aabb_min, scene.cl_aabb_max
-        assert lo.shape[0] == {256: 484, 512: 243, 1024: 121}.get(
+        assert lo.shape[0] == {256: 484, 512: 243, 1024: 121,
+                               8: SMALL_BLOCK_CLUSTERS}.get(
             case, lo.shape[0]) and (case != 128 or lo.shape[0] > 512)
         cases = _prep_cases(dev, case)
     else:
@@ -291,6 +312,10 @@ def test_prep_kernels_equal_plain(case, loong_scale_scene):
                 assert torch.equal(g, w), (
                     f"{label}, perm {perm is not None}: {name} differs in "
                     f"{int((g != w).sum())} entries")
+            if case == "past the shared memory" and perm is None:
+                # every tile minimum finite but in the tile with no live ray
+                assert want[0].tolist() == [0 if i == 3 else lo.shape[0]
+                                            for i in range(64)]
         launched = (tsweep.sweep_key.launches, tsweep.sweep_spans.launches)
         calls = (tsweep.sweep_key_plain.calls, tsweep.sweep_spans_plain.calls)
         tsweep.sweep_inputs(scene, o, d, mask, anyhit)
@@ -302,25 +327,51 @@ def test_prep_kernels_equal_plain(case, loong_scale_scene):
 
 
 @pytest.mark.cuda
-def test_prep_clusters_beyond_the_limit_are_refused():
+def test_swept_pair_past_the_shared_memory(loong_scale_scene):
+    """One whole merged cast (closest_hit_swept_pair: NEE-shadow any-hit
+    rays and closest-hit rays) on the main path's scene in blocks of 8,
+    14,172 clusters: sweep_key, sweep_runs and K1 launched, no plain
+    version called, and its hits those of the plain versions on the same
+    inputs (sweep_key_plain, the stable sort, sweep_spans_plain,
+    sweep_plain): the same triangle and inside flag on every ray, t to
+    1e-6 relative (_assert_same_records)."""
     dev = _card()
-    c = tsweep.MAX_CLUSTERS + 1
-    lo = torch.zeros((c, 3), device=dev)
-    o, d = _rays(256, 1, dev)
-    mask = torch.ones(256, dtype=torch.bool, device=dev)
-    calls = tsweep.sweep_key_plain.calls, tsweep.sweep_spans_plain.calls
-    with pytest.raises(ValueError, match=str(tsweep.MAX_CLUSTERS)):
-        tsweep.sweep_key(o, d, mask, lo, lo + 1)
-    with pytest.raises(ValueError, match=str(tsweep.MAX_CLUSTERS)):
-        tsweep.sweep_spans(o, d, mask, ~mask, None, lo, lo + 1)
-    assert (tsweep.sweep_key_plain.calls,
-            tsweep.sweep_spans_plain.calls) == calls
-    # the largest count it takes: every output equal to the plain version
-    lo = lo[:-1] + torch.arange(c - 1, device=dev)[:, None] * 1e-3
-    got = tsweep.sweep_spans(o, d, mask, ~mask, None, lo, lo + 1)
-    want = tsweep.sweep_spans_plain(o, d, mask, ~mask, None, lo, lo + 1)
-    for g, w in zip(got, want):
-        assert torch.equal(g, w)
+    scene = loong_scale_scene.build(cluster_size=8, device=dev)
+    assert scene.cl_aabb_min.shape[0] == SMALL_BLOCK_CLUSTERS
+    gen = torch.Generator(device=dev).manual_seed(5)
+    o_a, d_a = _rays(24576, 3, dev)
+    o_c, d_c = _rays(40960, 4, dev)
+    m_a = torch.rand(24576, generator=gen, device=dev) < 0.8
+    m_c = torch.rand(40960, generator=gen, device=dev) < 0.9
+    launched = (tsweep.sweep_key.launches, tsweep.sweep_spans.launches,
+                tsweep.sweep.launches)
+    calls = (tsweep.sweep_key_plain.calls, tsweep.sweep_spans_plain.calls,
+             tsweep.sweep_plain.calls)
+    hit_a, hit_c = tsweep.closest_hit_swept_pair(scene, o_a, d_a, m_a, o_c,
+                                                 d_c, m_c)
+    assert (tsweep.sweep_key.launches, tsweep.sweep_spans.launches,
+            tsweep.sweep.launches) == tuple(n + 1 for n in launched)
+    assert (tsweep.sweep_key_plain.calls, tsweep.sweep_spans_plain.calls,
+            tsweep.sweep_plain.calls) == calls
+
+    mask = torch.cat([m_a, m_c])
+    o, d, m, a = tsweep.pad_cast(
+        torch.cat([o_a, o_c]), torch.cat([d_a, d_c]), mask,
+        torch.cat([torch.ones_like(m_a), torch.zeros_like(m_c)]))
+    lo, hi = scene.cl_aabb_min, scene.cl_aabb_max
+    perm = torch.sort(tsweep.sweep_key_plain(o, d, m, lo, hi),
+                      stable=True).indices
+    best = tsweep.sweep_plain(
+        *tsweep.sweep_spans_plain(o, d, m, a, perm, lo, hi),
+        scene.cl_trifeat)
+    best = torch.empty_like(best).index_copy_(0, perm, best)[:mask.shape[0]]
+    slot = torch.where(mask, best[:, 1], -1.0).long()
+    tri = torch.where(slot >= 0, scene.cl_slot2tri[slot.clamp(min=0)], -1)
+    got = torch.cat([torch.stack([h.t, h.tri.float(), h.inside.float()], 1)
+                     for h in (hit_a, hit_c)])
+    want = torch.stack([torch.where(mask, best[:, 0], tsweep.INF),
+                        tri.float(), (mask & (best[:, 2] > 0.5)).float()], 1)
+    _assert_same_records(got, want, "pair, 14,172 clusters", min_hits=0.2)
 
 
 @pytest.mark.cuda

@@ -5,7 +5,8 @@ tile minima as unsigned integer minima of those bits), and the port's key
 (sweep_key_plain, int32) equals JAX's _sort_key (int32) on the same edge
 cases: origins on box faces and inside boxes, direction components of
 +-0.0 and below 1e-12, boxes behind the ray. Also the SASS reader of
-probes/prep_kernels.py, on a listing in cuobjdump's form."""
+probes/prep_kernels.py, on a listing in cuobjdump's form, its bytes
+bound and its synthetic case past the shared-memory path."""
 
 import numpy as np
 import pytest
@@ -153,3 +154,64 @@ def test_sass_reader_counts_per_pair():
     ms = prep_kernels.pipe_ms(key, 132 * 64 * 1000, 1000.0)
     assert ms["alu"] == pytest.approx(2.0 / 1000)
     assert ms["issue"] == pytest.approx(11 * 64 / 128 / 1000)
+
+
+def test_sass_reader_keeps_to_the_named_kernels():
+    """The kernel of the path past SMEM_CLUSTERS (sweep_runs_kernel) has a
+    slab-test loop too, but its name holds neither kernel's name: the
+    per-pair counts stay those of sweep_key_kernel and sweep_spans_kernel
+    wherever its listing falls."""
+    runs = """
+		Function : _ZN12_GLOBAL__N_117sweep_runs_kernelEPKfS1_PKbS3_PKxS1_S1_iPiS6_PfS7_S7_Py
+        /*0000*/                   FMUL R5, R5, R7 ;
+        /*0010*/                   FMUL R6, R5, R7 ;
+        /*0020*/                   FMUL R6, R5, R7 ;
+        /*0030*/                   FMUL R6, R5, R7 ;
+        /*0040*/                   FMUL R6, R5, R7 ;
+        /*0050*/                   FMUL R6, R5, R7 ;
+        /*0060*/                   FMNMX R8, R5, R6, PT ;
+        /*0070*/               @P0 BRA 0x0 ;
+        /*0080*/                   EXIT ;
+"""
+    want = prep_kernels.parse_sass(SASS)
+    head, tail = SASS.split("\t\tFunction : _ZN12_GLOBAL__N_118sweep_spans")
+    for text in (SASS + runs, head + runs + "\t\tFunction : "
+                 "_ZN12_GLOBAL__N_118sweep_spans" + tail):
+        assert prep_kernels.parse_sass(text) == want
+
+
+@pytest.mark.parametrize("c", [tsweep.SMEM_CLUSTERS,
+                               tsweep.SMEM_CLUSTERS + 1])
+def test_prep_bound_counts_the_runs_scratch(c):
+    """prep_kernels.bounds: past SMEM_CLUSTERS clusters sweep_spans's bytes
+    add its (G, C) scratch of 8-byte keys, written once and read once;
+    sweep_key's bytes and the pairs do not change."""
+    r = 4 * tsweep.TILE_R
+    o = torch.zeros((r, 3))
+    m = torch.ones(r, dtype=torch.bool)
+    lo = torch.zeros((c, 3))
+    key, spans, pairs = prep_kernels.bounds((o, o, m, m, lo, lo))
+    per_byte = prep_kernels.prep_bound(0, 1)[3]   # ms a byte
+    assert pairs == r * c
+    assert key[3] == pytest.approx((r * 29 + c * 24) * per_byte)
+    g = r // tsweep.TILE_R
+    plain = r * 34 + c * 24 + g * 4 + g * c * 8 + r * 96
+    scratch = 2 * g * c * 8 if c > tsweep.SMEM_CLUSTERS else 0
+    assert spans[3] == pytest.approx((plain + scratch) * per_byte)
+
+
+def test_finite_case_enters_every_box():
+    """prep_kernels.finite_case (8,193 boxes that every ray enters, so every
+    tile minimum is finite): on the CPU the port's slab test and JAX's
+    give a finite entry for every (ray, box) pair, and sweep_spans_plain's
+    nspan is C in every tile."""
+    boxes, (o, d, mask, anyhit) = prep_kernels.finite_case("cpu", 256)
+    lo, hi = boxes.cl_aabb_min, boxes.cl_aabb_max
+    assert lo.shape[0] == tsweep.SMEM_CLUSTERS + 1
+    tn = tsweep.cluster_tnear(o, d, lo, hi)
+    want = np.asarray(jax_cluster_tnear(*(jnp.asarray(x.numpy())
+                                          for x in (o, d, lo, hi))))
+    np.testing.assert_array_equal(tn.numpy(), want)
+    assert bool((tn < INF).all())
+    nspan = tsweep.sweep_spans_plain(o, d, mask, anyhit, None, lo, hi)[0]
+    assert nspan.tolist() == [lo.shape[0]] * 2

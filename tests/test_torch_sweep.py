@@ -25,11 +25,11 @@ from opengl_ray_tracing_framework_tpu.ops.schedule import (
     cluster_tnear as jax_cluster_tnear)
 from opengl_ray_tracing_framework_tpu.utils.config import RenderConfig
 from opengl_ray_tracing_framework_tpu_torch.models.scene import (
-    scene_from_numpy)
+    build_test_scene as torch_build_test_scene, scene_from_numpy)
 from opengl_ray_tracing_framework_tpu_torch.ops import intersect as tint
 from opengl_ray_tracing_framework_tpu_torch.ops import sweep as tsweep
 
-from test_torch_host import jax_scene_arrays
+from test_torch_host import assert_same_scene, jax_scene_arrays
 
 INF = 114514.0
 JCFG = RenderConfig(pallas_interpret=True)
@@ -51,6 +51,22 @@ def many_cluster_scenes():
     jdata = jsc.build(cluster_size=8)
     assert jdata.cl_aabb_min.shape[0] >= 100
     return _pair(jdata)
+
+
+@pytest.fixture(scope="module")
+def small_block_scenes():
+    """The 81,922-triangle scene of the main path in cluster blocks of 8:
+    14,172 clusters, more than csrc/sweep_prep.cu's sweep_spans holds in
+    shared memory (SMEM_CLUSTERS), so the card takes its sorted runs
+    (sweep_runs). Built once in each package; the port's build equals
+    JAX's."""
+    jsc, _ = jax_build_test_scene(n_sphere_subdiv=6)
+    jdata = jsc.build(cluster_size=8)
+    tdata = torch_build_test_scene(6, device="cpu")[0].build(
+        cluster_size=8, device="cpu")
+    assert tdata.cl_aabb_min.shape[0] == 14172 > tsweep.SMEM_CLUSTERS
+    assert_same_scene(tdata, jax_scene_arrays(jdata))
+    return jdata, tdata
 
 
 @pytest.fixture(scope="module", params=[512, 1024, 302])
@@ -150,6 +166,17 @@ def test_swept_wide_blocks_match_jax(wide_block_scenes):
     assert (port.tri.numpy() >= 0).sum() > 100
     assert_hits_agree(port, ref, tri_agree=1.0)
     assert_hits_agree(port, oracle, tri_agree=1.0)
+
+
+def test_swept_small_blocks_match_jax(small_block_scenes):
+    """14,172 clusters of 8 triangles: the port's sweep finds the JAX
+    sweep's hits and the oracle's."""
+    jdata, tdata = small_block_scenes
+    o, d = random_rays(np.random.default_rng(37), 256)
+    port, ref, oracle = three_way(jdata, tdata, o, d)
+    assert (port.tri.numpy() >= 0).sum() > 50
+    assert_hits_agree(port, oracle)
+    assert_hits_agree(port, ref)
 
 
 def test_swept_any_hit(many_cluster_scenes):
@@ -261,7 +288,8 @@ def _jax_prep(jdata, o, d, mask, anyhit):
         rayfeat=jax_ray_features(o, d), best=best), padded
 
 
-@pytest.mark.parametrize("fixture", ["scenes", "many_cluster_scenes"])
+@pytest.mark.parametrize("fixture", ["scenes", "many_cluster_scenes",
+                                     "small_block_scenes"])
 @pytest.mark.parametrize("n_rays,masked", [(1000, 0.3), (100, 0.2),
                                            (768, 0.0)])
 def test_sweep_inputs_equal_jax_swept_impl_steps(fixture, n_rays, masked,
@@ -270,7 +298,8 @@ def test_sweep_inputs_equal_jax_swept_impl_steps(fixture, n_rays, masked,
     kernels, csrc/sweep_prep.cu) gives exactly the values of JAX's steps of
     _swept_impl: the key, the permutation, the span lists, the caps, the
     ray features and the records; with masked lanes, R no multiple of 128
-    (padded) and R <= 128 (one tile, no sort). Exact: the two CPU
+    (padded) and R <= 128 (one tile, no sort), at 161 clusters and at
+    14,172 (past the card's shared-memory path). Exact: the two CPU
     libraries round the slab test and the cross product alike; their
     atan2 differs in the last bit on about a sixth of inputs, which moves
     a key only where phi lies within that bit of a bucket edge (none
