@@ -123,8 +123,8 @@ when torch sees no CUDA device, and when anything below fails:
     1024x512, 8 bounces, 3 spp, --progress-every 1, --timing and
     --save-state (its JSON line parsed, K1 launched, the plain sweep never
     called), then --resume with 1 spp more, whose accumulator must equal a
-    continuous 4-spp render exactly; the --timing table (fenced wall ms
-    and CUDA-event ms per stage) of that run and of phase 3's
+    continuous 4-spp render exactly; the --timing table (host ms a pass
+    by span, the pass's wall and CUDA-event ms) of that run and of phase 3's
     81,922-triangle scene; then the CLI as a user runs it, a subprocess
     `python -m ...cli --scene loong --material brown_glass` at 1024x512,
     8 bounces, 2 spp, with ORTF_ASSETS naming a temporary directory that

@@ -28,7 +28,8 @@ Environment knobs (as bench.py has them, plus the scene and tracer):
   BENCH_BWD_TILE  rays per batch of a grad step (131072)
   BENCH_PASSES    timed passes (3); the grad step is timed
                   max(1, BENCH_PASSES - 1) times
-  BENCH_TIMING=1  also print utils/timing.py's per-stage breakdown to stderr
+  BENCH_TIMING=1  also print utils/timing.py's breakdown (host ms a pass by
+                  span) to stderr
 
 `compile_seconds` is the first pass of the process: it pays the nvcc build
 of whatever build/torch_kernels/ lacks, the library loads and the first

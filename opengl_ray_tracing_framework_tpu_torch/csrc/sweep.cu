@@ -48,6 +48,10 @@
 // columns of a span arrive as chunks of at most 256 by tensor-map copies
 // through the same two buffers, every chunk folds into the keys, and the
 // keys are reduced and tested once per span (mt_span.cuh).
+//
+// Tracing (utils/timing.py): a non-null `walked` makes CTA 0 of each tile's
+// cluster add the spans its walk visited, once per tile, with one atomicAdd
+// after the walk; null (tracing off) costs one uniform branch.
 
 #include <cooperative_groups.h>
 #include <cuda.h>
@@ -97,7 +101,7 @@ sweep_kernel(const __grid_constant__ CUtensorMap map,
              const float* __restrict__ tile_sorted,
              const float* __restrict__ rayfeat, float* __restrict__ best,
              const float* __restrict__ trifeat, int n_clusters, int t_blk,
-             int tc) {
+             unsigned long long* __restrict__ walked, int tc) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   constexpr bool ASYNC = MODE != mt::HAND;
   cg::cluster_group cluster = cg::this_cluster();
@@ -217,6 +221,9 @@ sweep_kernel(const __grid_constant__ CUtensorMap map,
     mt::mbar_wait(sm.bar + slot, parity);
   }
 
+  if (walked != nullptr && rank == 0 && tid == 0)
+    atomicAdd(walked, static_cast<unsigned long long>(j + 1));
+
   if (rank == 0 && grp == 0) {
 #pragma unroll
     for (int r = 0; r < RAYS_PER_THREAD; ++r) {
@@ -243,15 +250,18 @@ extern "C" int sweep_cluster_size(int n_tiles, int t_blk) {
 
 // nspan (G,) i32; spans, tile_sorted (G, C); rayfeat (G*TILE_R, 16) f32;
 // best (G*TILE_R, 8) f32, updated in place; trifeat (C, 16, 4T) f32, T <=
-// MAX_BLOCK_TRIS. Launches on `stream` and returns the CUDA error of the
-// launch (0: none).
+// MAX_BLOCK_TRIS; walked: null, or a uint64 counter that each tile adds
+// the spans it walked to. Launches on `stream` and returns the CUDA error of
+// the launch (0: none).
 extern "C" int sweep_launch(const int* nspan, const int* spans,
                             const float* tile_sorted, const float* rayfeat,
                             float* best, const float* trifeat, int n_tiles,
-                            int n_clusters, int t_blk, void* stream) {
+                            int n_clusters, int t_blk,
+                            unsigned long long* walked, void* stream) {
   if (n_tiles <= 0) return static_cast<int>(cudaGetLastError());
   return static_cast<int>(mt::launch_staged(
       sweep_kernel<mt::BULK>, sweep_kernel<mt::TENSOR>, sweep_kernel<mt::HAND>,
       n_tiles, n_clusters, t_blk, trifeat, static_cast<cudaStream_t>(stream),
-      nspan, spans, tile_sorted, rayfeat, best, trifeat, n_clusters, t_blk));
+      nspan, spans, tile_sorted, rayfeat, best, trifeat, n_clusters, t_blk,
+      walked));
 }

@@ -71,6 +71,12 @@
 //   CTAs. Runs of 2,048 clusters keep the CTA at 60 KB of shared memory,
 //   three CTAs an SM.
 //
+// Tracing (utils/timing.py): a non-null `live_rays` makes sweep_spans and
+// sweep_runs count the tile's rays that are masked on and enter at least
+// one cluster box (a finite farthest entry: the rays whose key is not
+// DEAD_KEY), by one barrier count and one atomicAdd per CTA; null (tracing
+// off) costs one uniform branch.
+//
 // Exactness: every step rounds as the eager torch version does on the
 // card. No fast math (utils/nvcc.py passes none): 1 / d is IEEE division,
 // and the key's products and sums are __fmul_rn / __fadd_rn, which the
@@ -258,6 +264,14 @@ sweep_key_kernel(const float* __restrict__ origin,
   }
 }
 
+// Add the CTA's count of `flag` to *counter: one barrier count, one atomic.
+__device__ __forceinline__ void count_live(unsigned long long* counter,
+                                           bool flag) {
+  const int n = __syncthreads_count(flag);
+  if (threadIdx.x == 0 && n > 0)
+    atomicAdd(counter, static_cast<unsigned long long>(n));
+}
+
 // Ascending bitonic sort of keys[0, n), n a power of two >= 2, by
 // `threads` threads numbered t: the whole CTA (block) or one warp.
 __device__ __forceinline__ void bitonic(unsigned long long* keys, int n,
@@ -288,7 +302,8 @@ sweep_spans_kernel(const float* __restrict__ origin,
                    const float* __restrict__ cl_max, int n_clusters,
                    int n_keys, int* __restrict__ nspan,
                    int* __restrict__ spans, float* __restrict__ tile_sorted,
-                   float* __restrict__ rayfeat, float* __restrict__ best) {
+                   float* __restrict__ rayfeat, float* __restrict__ best,
+                   unsigned long long* __restrict__ live_rays) {
   // keys: n_keys (a power of two >= C); rows: each warp's C minima (float
   // bits); the first row then holds the tile minima (tmin) and in place
   // the clusters whose minimum is INF, in index order
@@ -405,6 +420,7 @@ sweep_spans_kernel(const float* __restrict__ origin,
     if (t == 0) nspan[blockIdx.x] = nf;
   }
 
+  if (live_rays != nullptr) count_live(live_rays, far_bits >= 0);
   const float far = far_bits < 0 ? -INF : __int_as_float(far_bits);
   float4* rec = reinterpret_cast<float4*>(best + row * BEST_W);
   rec[0] = make_float4(live ? INF : -INF, -1.0f, 0.0f, nextafterf(far, INF));
@@ -434,7 +450,8 @@ sweep_runs_kernel(const float* __restrict__ origin,
                   int* __restrict__ nspan, int* __restrict__ spans,
                   float* __restrict__ tile_sorted,
                   float* __restrict__ rayfeat, float* __restrict__ best,
-                  unsigned long long* runs) {
+                  unsigned long long* runs,
+                  unsigned long long* __restrict__ live_rays) {
   // keys: one run's finite keys (RUN_CLUSTERS); rows: each warp's minima
   // of the run; the first row then holds the run's tile minima (tmin) and
   // in place its clusters whose minimum is INF, in index order
@@ -578,6 +595,7 @@ sweep_runs_kernel(const float* __restrict__ origin,
     if (t == 0) nspan[blockIdx.x] = nf;
   }
 
+  if (live_rays != nullptr) count_live(live_rays, far_bits >= 0);
   const float far = far_bits < 0 ? -INF : __int_as_float(far_bits);
   float4* rec = reinterpret_cast<float4*>(best + row * BEST_W);
   rec[0] = make_float4(live ? INF : -INF, -1.0f, 0.0f, nextafterf(far, INF));
@@ -643,15 +661,18 @@ extern "C" int sweep_key_launch(const float* origin, const float* direction,
 // (G, C) f32, rayfeat (R, 16) f32, best (R, 8) f32, the last two 16-byte
 // aligned. C <= SMEM_CLUSTERS launches sweep_spans (runs unused, may be
 // null); a larger C launches sweep_runs, whose scratch `runs` is (G, C)
-// uint64. Launches on `stream` and returns the first CUDA error (0:
-// launched).
+// uint64. live_rays: null, or a uint64 counter of the rays that are masked
+// on and enter some cluster. Launches on `stream` and returns the first
+// CUDA error (0: launched).
 extern "C" int sweep_spans_launch(const float* origin, const float* direction,
                                   const bool* mask, const bool* anyhit,
                                   const long long* perm, const float* cl_min,
                                   const float* cl_max, int* nspan, int* spans,
                                   float* tile_sorted, float* rayfeat,
                                   float* best, unsigned long long* runs,
-                                  int n_tiles, int n_clusters, void* stream) {
+                                  int n_tiles, int n_clusters,
+                                  unsigned long long* live_rays,
+                                  void* stream) {
   if (n_tiles <= 0) return static_cast<int>(cudaGetLastError());
   if (n_clusters < 1 || (n_clusters > SMEM_CLUSTERS && runs == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -662,7 +683,7 @@ extern "C" int sweep_spans_launch(const float* origin, const float* direction,
     if (rc != cudaSuccess) return static_cast<int>(rc);
     sweep_runs_kernel<<<n_tiles, TILE_R, smem, st>>>(
         origin, direction, mask, anyhit, perm, cl_min, cl_max, n_clusters,
-        nspan, spans, tile_sorted, rayfeat, best, runs);
+        nspan, spans, tile_sorted, rayfeat, best, runs, live_rays);
     return static_cast<int>(cudaGetLastError());
   }
   const cudaError_t rc = allow_smem(
@@ -670,6 +691,7 @@ extern "C" int sweep_spans_launch(const float* origin, const float* direction,
   if (rc != cudaSuccess) return static_cast<int>(rc);
   sweep_spans_kernel<<<n_tiles, TILE_R, spans_smem(n_clusters), st>>>(
       origin, direction, mask, anyhit, perm, cl_min, cl_max, n_clusters,
-      pow2_at_least(n_clusters), nspan, spans, tile_sorted, rayfeat, best);
+      pow2_at_least(n_clusters), nspan, spans, tile_sorted, rayfeat, best,
+      live_rays);
   return static_cast<int>(cudaGetLastError());
 }

@@ -31,6 +31,12 @@ float tensors and the ray tensors except the casts, which are detached
 the output is an in-place index_put_: nothing saved for the backward reads
 that tensor, and a lane a later bounce overwrites gets its gradient from
 that later write only, which is the compaction's exactness argument again.
+
+Spans (utils/timing.py's tracing()): rt.bounce around each bounce, inside
+it rt.shade.surface / .light / .bsdf / .env and the cast's rt.cast, and
+rt.sync around each torch.nonzero of the compaction, the render loop's
+only waits on the device; counters bounces, bounce_lanes (live lanes at a
+bounce's start, known on the host after the nonzero) and syncs.
 """
 
 from __future__ import annotations
@@ -38,6 +44,7 @@ from __future__ import annotations
 import torch
 
 from ..models.material import MEDIUM_ABSORB, MEDIUM_EMISSIVE, MEDIUM_SCATTER
+from ..utils.timing import count, span
 from . import disney
 from .envmap import (
     default_sky_color,
@@ -123,99 +130,107 @@ def _bounce(scene, b, frame, sobol_point, config, pid, origin, direction,
             t, tri, inside, history, lo):
     """One bounce of glsl:1369-1516 for rays alive at its start. Returns
     the rays' (lo, history, next origin, next direction, next hit, alive)."""
-    hit_point, n, v, mat = surface_attributes(scene, origin, direction, t,
-                                              tri, inside)
+    with span("rt.shade.surface"):
+        hit_point, n, v, mat = surface_attributes(scene, origin, direction,
+                                                  t, tri, inside)
     hh, ww = scene.hdr_map.shape[0], scene.hdr_map.shape[1]
 
     # 1. next-event estimation: draw the light sample (its shadow ray is
     # traced with the bounce ray below)
     if config.enable_env_map:
-        xl1 = rand01(pid, frame, 8 * b + 0)
-        xl2 = rand01(pid, frame, 8 * b + 1)
-        l_dir, light_pdf, light_fr = _env_nee_sample(
-            scene, config, hh, ww, xl1, xl2)
-        light_fr = light_fr * scene.env_intensity
-        facing = torch.sum(n * l_dir, dim=-1) > 0.0
+        with span("rt.shade.light"):
+            xl1 = rand01(pid, frame, 8 * b + 0)
+            xl2 = rand01(pid, frame, 8 * b + 1)
+            l_dir, light_pdf, light_fr = _env_nee_sample(
+                scene, config, hh, ww, xl1, xl2)
+            light_fr = light_fr * scene.env_intensity
+            facing = torch.sum(n * l_dir, dim=-1) > 0.0
 
-    # 2. sample the BSDF
-    u, vv = sobol_bounce_uv(sobol_point, b)
-    xi1 = cranley_patterson(u, rand01(pid, frame, 8 * b + 2))
-    xi2 = cranley_patterson(vv, rand01(pid, frame, 8 * b + 3))
-    xi3 = rand01(pid, frame, 8 * b + 4)
+    with span("rt.shade.bsdf"):
+        # 2. sample the BSDF
+        u, vv = sobol_bounce_uv(sobol_point, b)
+        xi1 = cranley_patterson(u, rand01(pid, frame, 8 * b + 2))
+        xi2 = cranley_patterson(vv, rand01(pid, frame, 8 * b + 3))
+        xi3 = rand01(pid, frame, 8 * b + 4)
 
-    smp = disney.disney_sample(mat, v, n, xi1, xi2, xi3)
-    alive = smp.pdf > _EPS_PDF
+        smp = disney.disney_sample(mat, v, n, xi1, xi2, xi3)
+        alive = smp.pdf > _EPS_PDF
 
-    # 3. media on refraction (glsl:1429-1458)
-    refract = alive & smp.is_refract
-    med_absorb = refract & (mat.medium_type == MEDIUM_ABSORB)
-    med_emissive = refract & (mat.medium_type == MEDIUM_EMISSIVE)
-    med_scatter_t = refract & (mat.medium_type == MEDIUM_SCATTER)
+        # 3. media on refraction (glsl:1429-1458)
+        refract = alive & smp.is_refract
+        med_absorb = refract & (mat.medium_type == MEDIUM_ABSORB)
+        med_emissive = refract & (mat.medium_type == MEDIUM_EMISSIVE)
+        med_scatter_t = refract & (mat.medium_type == MEDIUM_SCATTER)
 
-    dens = mat.medium_density
-    absorb_mult = torch.exp(-(1.0 - mat.medium_color)
-                            * t[..., None] * dens[..., None])
-    lo = lo + torch.where(
-        med_emissive[..., None],
-        mat.medium_color * (t * dens)[..., None] * history, 0.0)
+        dens = mat.medium_density
+        absorb_mult = torch.exp(-(1.0 - mat.medium_color)
+                                * t[..., None] * dens[..., None])
+        lo = lo + torch.where(
+            med_emissive[..., None],
+            mat.medium_color * (t * dens)[..., None] * history, 0.0)
 
-    scatter_dist = torch.minimum(
-        -torch.log(torch.clamp(xi3, min=1e-12)) * _safe_rcp(dens, 1e-6), t)
-    med_sampled = med_scatter_t & (scatter_dist < t)
-    hg_dir = sample_hg(v, mat.medium_anisotropy, xi1, xi2)
-    hg_pdf = phase_hg(torch.sum(v * hg_dir, dim=-1), mat.medium_anisotropy)
+        scatter_dist = torch.minimum(
+            -torch.log(torch.clamp(xi3, min=1e-12)) * _safe_rcp(dens, 1e-6),
+            t)
+        med_sampled = med_scatter_t & (scatter_dist < t)
+        hg_dir = sample_hg(v, mat.medium_anisotropy, xi1, xi2)
+        hg_pdf = phase_hg(torch.sum(v * hg_dir, dim=-1),
+                          mat.medium_anisotropy)
 
-    # throughput & next ray
-    surf_mult = smp.f * _safe_rcp(smp.pdf)[..., None]
-    surf_mult = torch.where(med_absorb[..., None], surf_mult * absorb_mult,
-                            surf_mult)
-    scatter_mult = mat.medium_color * torch.exp(-scatter_dist)[..., None]
-    mult = torch.where(med_sampled[..., None], scatter_mult, surf_mult)
-    new_history = torch.where(alive[..., None], history * mult, history)
+        # throughput & next ray
+        surf_mult = smp.f * _safe_rcp(smp.pdf)[..., None]
+        surf_mult = torch.where(med_absorb[..., None],
+                                surf_mult * absorb_mult, surf_mult)
+        scatter_mult = mat.medium_color * torch.exp(-scatter_dist)[..., None]
+        mult = torch.where(med_sampled[..., None], scatter_mult, surf_mult)
+        new_history = torch.where(alive[..., None], history * mult, history)
 
-    new_dir = torch.where(med_sampled[..., None], hg_dir, smp.direction)
-    # glsl:1450 marches straight through the surface to the scatter point
-    scatter_org = hit_point + direction * scatter_dist[..., None]
-    new_org = torch.where(med_sampled[..., None], scatter_org, hit_point)
+        new_dir = torch.where(med_sampled[..., None], hg_dir, smp.direction)
+        # glsl:1450 marches straight through the surface to the scatter point
+        scatter_org = hit_point + direction * scatter_dist[..., None]
+        new_org = torch.where(med_sampled[..., None], scatter_org, hit_point)
 
-    # mixture pdf of the sampled direction, for env MIS (glsl:1466-1474)
-    _, pdf_eval_dir = disney.disney_eval(mat, v, n, new_dir)
-    pdf_for_mis = torch.where(med_sampled, hg_pdf, pdf_eval_dir)
+        # mixture pdf of the sampled direction, for env MIS (glsl:1466-1474)
+        _, pdf_eval_dir = disney.disney_eval(mat, v, n, new_dir)
+        pdf_for_mis = torch.where(med_sampled, hg_pdf, pdf_eval_dir)
 
     # 4. shadow + bounce rays in one cast
     if config.enable_env_map:
         shadow, nxt = closest_hit_pair(scene, hit_point, l_dir, facing,
                                        new_org, new_dir, alive, config)
-        vis = facing & ~shadow.is_hit
-        f_eval, pdf_eval = disney.disney_eval(mat, v, n, l_dir)
-        w = mis_weight(light_pdf, pdf_eval)
-        if not config.enable_mis:
-            w = torch.ones_like(w)
-        contrib = (w * _safe_rcp(light_pdf))[..., None] \
-            * history * light_fr * f_eval
-        lo = lo + torch.where(vis[..., None], contrib, 0.0)
+        with span("rt.shade.light"):
+            vis = facing & ~shadow.is_hit
+            f_eval, pdf_eval = disney.disney_eval(mat, v, n, l_dir)
+            w = mis_weight(light_pdf, pdf_eval)
+            if not config.enable_mis:
+                w = torch.ones_like(w)
+            contrib = (w * _safe_rcp(light_pdf))[..., None] \
+                * history * light_fr * f_eval
+            lo = lo + torch.where(vis[..., None], contrib, 0.0)
     else:
         nxt = closest_hit(scene, new_org, new_dir, config, mask=alive)
-    nxt_miss = alive & ~nxt.is_hit
 
-    if config.enable_env_map:
-        env_fr, light_pdf2 = _env_miss_radiance_pdf(
-            scene, config, hh, ww, new_dir)
-        env_fr = env_fr * scene.env_intensity
-        w2 = mis_weight(pdf_for_mis, light_pdf2)
-        if not config.enable_mis:
-            w2 = torch.ones_like(w2)
-        # phase-sampled lanes have no competing NEE: full weight
-        w2 = torch.where(med_sampled, 1.0, w2)
-        lo = lo + torch.where(nxt_miss[..., None],
-                              w2[..., None] * new_history * env_fr, 0.0)
-    else:
-        sky = default_sky_color(new_dir[..., 1])
-        lo = lo + torch.where(nxt_miss[..., None], new_history * sky, 0.0)
+    with span("rt.shade.env"):
+        nxt_miss = alive & ~nxt.is_hit
+        if config.enable_env_map:
+            env_fr, light_pdf2 = _env_miss_radiance_pdf(
+                scene, config, hh, ww, new_dir)
+            env_fr = env_fr * scene.env_intensity
+            w2 = mis_weight(pdf_for_mis, light_pdf2)
+            if not config.enable_mis:
+                w2 = torch.ones_like(w2)
+            # phase-sampled lanes have no competing NEE: full weight
+            w2 = torch.where(med_sampled, 1.0, w2)
+            lo = lo + torch.where(nxt_miss[..., None],
+                                  w2[..., None] * new_history * env_fr, 0.0)
+        else:
+            sky = default_sky_color(new_dir[..., 1])
+            lo = lo + torch.where(nxt_miss[..., None], new_history * sky,
+                                  0.0)
 
-    le = scene.material_of(nxt.tri).emissive
-    lo = lo + torch.where((alive & nxt.is_hit)[..., None],
-                          new_history * le, 0.0)
+        le = scene.material_of(nxt.tri).emissive
+        lo = lo + torch.where((alive & nxt.is_hit)[..., None],
+                              new_history * le, 0.0)
     return lo, new_history, new_org, new_dir, nxt, alive
 
 
@@ -226,63 +241,77 @@ def _bounce_brdf(scene, b, frame, sobol_point, config, pid, origin,
     consulted: the reference's BRDF mode applies the power heuristic
     unconditionally in the NEE (glsl:1310-1322) and in the bounce-miss
     pickup (glsl:1345-1352)."""
-    hit_point, n, v, mat = surface_attributes(scene, origin, direction, t,
-                                              tri, inside)
-    tangent, bitangent = onb(n)
+    with span("rt.shade.surface"):
+        hit_point, n, v, mat = surface_attributes(scene, origin, direction,
+                                                  t, tri, inside)
+        tangent, bitangent = onb(n)
     hh, ww = scene.hdr_map.shape[0], scene.hdr_map.shape[1]
 
     if config.enable_env_map:
-        xl1 = rand01(pid, frame, 8 * b + 0)
-        xl2 = rand01(pid, frame, 8 * b + 1)
-        l_dir_nee, light_pdf, light_fr = _env_nee_sample(
-            scene, config, hh, ww, xl1, xl2)
-        light_fr = light_fr * scene.env_intensity
-        facing = torch.sum(n * l_dir_nee, dim=-1) > 0.0
+        with span("rt.shade.light"):
+            xl1 = rand01(pid, frame, 8 * b + 0)
+            xl2 = rand01(pid, frame, 8 * b + 1)
+            l_dir_nee, light_pdf, light_fr = _env_nee_sample(
+                scene, config, hh, ww, xl1, xl2)
+            light_fr = light_fr * scene.env_intensity
+            facing = torch.sum(n * l_dir_nee, dim=-1) > 0.0
 
-    u, vv = sobol_bounce_uv(sobol_point, b)
-    xi1 = cranley_patterson(u, rand01(pid, frame, 8 * b + 2))
-    xi2 = cranley_patterson(vv, rand01(pid, frame, 8 * b + 3))
-    xi3 = rand01(pid, frame, 8 * b + 4)
+    with span("rt.shade.bsdf"):
+        u, vv = sobol_bounce_uv(sobol_point, b)
+        xi1 = cranley_patterson(u, rand01(pid, frame, 8 * b + 2))
+        xi2 = cranley_patterson(vv, rand01(pid, frame, 8 * b + 3))
+        xi3 = rand01(pid, frame, 8 * b + 4)
 
-    l_dir = disney.sample_brdf(mat, v, n, xi1, xi2, xi3)
-    f_r, pdf_brdf = disney.brdf_evaluate(mat, v, n, l_dir, tangent,
-                                         bitangent)
-    ndotl = torch.abs(torch.sum(n * l_dir, dim=-1))
-    alive = pdf_brdf > _EPS_PDF
-    mult = f_r * (ndotl * _safe_rcp(pdf_brdf))[..., None]
-    new_history = torch.where(alive[..., None], history * mult, history)
+        l_dir = disney.sample_brdf(mat, v, n, xi1, xi2, xi3)
+        f_r, pdf_brdf = disney.brdf_evaluate(mat, v, n, l_dir, tangent,
+                                             bitangent)
+        ndotl = torch.abs(torch.sum(n * l_dir, dim=-1))
+        alive = pdf_brdf > _EPS_PDF
+        mult = f_r * (ndotl * _safe_rcp(pdf_brdf))[..., None]
+        new_history = torch.where(alive[..., None], history * mult, history)
 
     # shadow + bounce rays in one cast
     if config.enable_env_map:
         shadow, nxt = closest_hit_pair(scene, hit_point, l_dir_nee, facing,
                                        hit_point, l_dir, alive, config)
-        vis = facing & ~shadow.is_hit
-        f_eval, pdf_eval = disney.brdf_evaluate(mat, v, n, l_dir_nee,
-                                                tangent, bitangent)
-        ndotl_nee = torch.abs(torch.sum(n * l_dir_nee, dim=-1))
-        w = mis_weight(light_pdf, pdf_eval)
-        contrib = (w * ndotl_nee * _safe_rcp(light_pdf))[..., None] \
-            * history * light_fr * f_eval
-        lo = lo + torch.where(vis[..., None], contrib, 0.0)
+        with span("rt.shade.light"):
+            vis = facing & ~shadow.is_hit
+            f_eval, pdf_eval = disney.brdf_evaluate(mat, v, n, l_dir_nee,
+                                                    tangent, bitangent)
+            ndotl_nee = torch.abs(torch.sum(n * l_dir_nee, dim=-1))
+            w = mis_weight(light_pdf, pdf_eval)
+            contrib = (w * ndotl_nee * _safe_rcp(light_pdf))[..., None] \
+                * history * light_fr * f_eval
+            lo = lo + torch.where(vis[..., None], contrib, 0.0)
     else:
         nxt = closest_hit(scene, hit_point, l_dir, config, mask=alive)
-    nxt_miss = alive & ~nxt.is_hit
 
-    if config.enable_env_map:
-        env_fr, light_pdf2 = _env_miss_radiance_pdf(
-            scene, config, hh, ww, l_dir)
-        env_fr = env_fr * scene.env_intensity
-        w2 = mis_weight(pdf_brdf, light_pdf2)
-        lo = lo + torch.where(nxt_miss[..., None],
-                              w2[..., None] * new_history * env_fr, 0.0)
-    else:
-        sky = default_sky_color(l_dir[..., 1])
-        lo = lo + torch.where(nxt_miss[..., None], new_history * sky, 0.0)
+    with span("rt.shade.env"):
+        nxt_miss = alive & ~nxt.is_hit
+        if config.enable_env_map:
+            env_fr, light_pdf2 = _env_miss_radiance_pdf(
+                scene, config, hh, ww, l_dir)
+            env_fr = env_fr * scene.env_intensity
+            w2 = mis_weight(pdf_brdf, light_pdf2)
+            lo = lo + torch.where(nxt_miss[..., None],
+                                  w2[..., None] * new_history * env_fr, 0.0)
+        else:
+            sky = default_sky_color(l_dir[..., 1])
+            lo = lo + torch.where(nxt_miss[..., None], new_history * sky,
+                                  0.0)
 
-    le = scene.material_of(nxt.tri).emissive
-    lo = lo + torch.where((alive & nxt.is_hit)[..., None],
-                          new_history * le, 0.0)
+        le = scene.material_of(nxt.tri).emissive
+        lo = lo + torch.where((alive & nxt.is_hit)[..., None],
+                              new_history * le, 0.0)
     return lo, new_history, hit_point, l_dir, nxt, alive
+
+
+def _live_lanes(flags):
+    """Indices of the set flags: torch.nonzero, which waits for the device
+    (a span rt.sync)."""
+    with span("rt.sync"):
+        count("syncs")
+        return torch.nonzero(flags).squeeze(1)
 
 
 def _bounce_loop(bounce, scene, origin, direction, hit0, pixel_id, frame,
@@ -291,7 +320,7 @@ def _bounce_loop(bounce, scene, origin, direction, hit0, pixel_id, frame,
     the lanes still alive; returns the (R, 3) radiance gathered after the
     primary hit."""
     lo_out = torch.zeros_like(origin)
-    lanes = torch.nonzero(hit0.is_hit).squeeze(1)
+    lanes = _live_lanes(hit0.is_hit)
     o, d = origin[lanes], direction[lanes]
     t, tri, inside = hit0.t[lanes], hit0.tri[lanes], hit0.inside[lanes]
     history = torch.ones_like(o)
@@ -300,11 +329,14 @@ def _bounce_loop(bounce, scene, origin, direction, hit0, pixel_id, frame,
     for b in range(config.max_bounce):
         if lanes.numel() == 0:
             break
-        lo, history, o, d, nxt, alive = bounce(
-            scene, b, frame, sobol_point, config, pixel_id[lanes], o, d,
-            t, tri, inside, history, lo)
+        count("bounces")
+        count("bounce_lanes", lanes.numel())
+        with span("rt.bounce"):
+            lo, history, o, d, nxt, alive = bounce(
+                scene, b, frame, sobol_point, config, pixel_id[lanes], o, d,
+                t, tri, inside, history, lo)
         lo_out[lanes] = lo
-        keep = torch.nonzero(alive & nxt.is_hit).squeeze(1)
+        keep = _live_lanes(alive & nxt.is_hit)
         lanes, o, d, history, lo = (x[keep] for x in
                                     (lanes, o, d, history, lo))
         t, tri, inside = nxt.t[keep], nxt.tri[keep], nxt.inside[keep]

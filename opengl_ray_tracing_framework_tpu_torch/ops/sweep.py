@@ -44,7 +44,7 @@ import math
 
 import torch
 
-from ..utils import nvcc
+from ..utils import nvcc, timing
 from .intersect import INF, T_MIN, Hit
 from .sampling import _cross
 
@@ -179,7 +179,8 @@ def sweep_plain(nspan, spans, tile_sorted, rayfeat, best, trifeat):
     is one batched matmul, then the kernel's epilogue and stop test.
     `sweep_plain.visited` keeps the last call's (G,) count of spans each
     tile walked before its stop test ended the walk: the work the kernel
-    does on the same inputs.
+    does on the same inputs. Their sum goes to utils/timing.py's device
+    counter k1_spans_walked while tracing is on.
     """
     sweep_plain.calls += 1
     g, c = spans.shape
@@ -203,6 +204,7 @@ def sweep_plain(nspan, spans, tile_sorted, rayfeat, best, trifeat):
         more = (j + 1 < nspan[active]) & (tile_sorted[active, j + 1] < thresh)
         active = active[more]
         j += 1
+    timing.add_device("k1_spans_walked", visited.sum())
     return best.reshape(-1, BEST_W)
 
 
@@ -215,7 +217,7 @@ def _declare(lib):
     lib.sweep_tile_rays.argtypes = []
     lib.sweep_tile_rays.restype = ctypes.c_int
     lib.sweep_launch.argtypes = ([ctypes.c_void_p] * 6
-                                 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+                                 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2)
     lib.sweep_launch.restype = ctypes.c_int
     lib.sweep_cluster_size.argtypes = [ctypes.c_int, ctypes.c_int]
     lib.sweep_cluster_size.restype = ctypes.c_int
@@ -235,7 +237,9 @@ def sweep(nspan, spans, tile_sorted, rayfeat, best, trifeat):
     updated in place and returned), sweep_plain for CPU tensors. Same
     contract as sweep_plain; the kernel takes cluster blocks of up to
     MAX_BLOCK_TRIS triangles and raises ValueError beyond.
-    `sweep.launches` counts kernel launches."""
+    `sweep.launches` counts kernel launches. While utils/timing.py's
+    tracing is on the kernel adds the spans it walks (once per tile) to
+    the device counter k1_spans_walked."""
     dev = rayfeat.device
     if dev.type == "cpu":
         return sweep_plain(nspan, spans, tile_sorted, rayfeat, best, trifeat)
@@ -266,7 +270,8 @@ def sweep(nspan, spans, tile_sorted, rayfeat, best, trifeat):
         rc = nvcc.load("sweep").sweep_launch(
             nspan.data_ptr(), spans.data_ptr(), tile_sorted.data_ptr(),
             rayfeat.data_ptr(), best.data_ptr(), trifeat.data_ptr(),
-            g, c, t_blk, stream)
+            g, c, t_blk, timing.device_counter("k1_spans_walked", dev),
+            stream)
     if rc != 0:
         raise RuntimeError(f"sweep kernel launch failed: cudaError {rc}")
     sweep.launches += 1
@@ -323,12 +328,16 @@ def sweep_spans_plain(origin, direction, mask, anyhit, perm, cl_min,
     first (a stable sort of the tile minima), tile_sorted (G, C) f32 their
     tile entry distances, rayfeat (R, 16) f32 and best (R, 8) f32 records
     [INF or -INF (masked), -1, 0, cap, anyhit, 0, 0, 0], all in kernel
-    order."""
+    order. The rays that are masked on and enter some cluster (a cap of at
+    least 0) go to utils/timing.py's device counter cast_live_rays while
+    tracing is on."""
     sweep_spans_plain.calls += 1
     if perm is not None:
         origin, direction = origin[perm], direction[perm]
         mask, anyhit = mask[perm], anyhit[perm]
     tile_tn, cap = _span_lists(origin, direction, mask, cl_min, cl_max)
+    # a ray that enters no cluster has the cap nextafter(-INF) < 0
+    timing.add_device("cast_live_rays", torch.sum(cap >= 0.0))
     tile_sorted, order = torch.sort(tile_tn, dim=1, stable=True)
     nspan = torch.sum(tile_sorted < INF, dim=1, dtype=torch.int32)
     best = torch.zeros((origin.shape[0], BEST_W), dtype=torch.float32,
@@ -355,7 +364,7 @@ def _declare_prep(lib):
     lib.sweep_key_launch.restype = ctypes.c_int
     lib.sweep_spans_launch.argtypes = ([ctypes.c_void_p] * 13
                                        + [ctypes.c_int] * 2
-                                       + [ctypes.c_void_p])
+                                       + [ctypes.c_void_p] * 2)
     lib.sweep_spans_launch.restype = ctypes.c_int
     if lib.sweep_prep_tile_rays() != TILE_R:
         raise RuntimeError(
@@ -432,7 +441,9 @@ def sweep_spans(origin, direction, mask, anyhit, perm, cl_min, cl_max):
     SMEM_CLUSTERS clusters, its tile minima in shared memory; sweep_runs
     above, through sorted runs in a (G, C) 64-bit scratch allocated here),
     sweep_spans_plain on a CPU tensor; same contract and values.
-    `sweep_spans.launches` counts kernel launches."""
+    `sweep_spans.launches` counts kernel launches. While utils/timing.py's
+    tracing is on, either kernel adds the rays that are masked on and
+    enter some cluster to the device counter cast_live_rays."""
     dev = _prep_device("sweep_spans", origin, cl_min)
     if dev.type == "cpu":
         return sweep_spans_plain(origin, direction, mask, anyhit, perm,
@@ -465,7 +476,7 @@ def sweep_spans(origin, direction, mask, anyhit, perm, cl_min, cl_max):
         cl_min.data_ptr(), cl_max.data_ptr(), nspan.data_ptr(),
         spans.data_ptr(), tile_sorted.data_ptr(), rayfeat.data_ptr(),
         best.data_ptr(), None if runs is None else runs.data_ptr(), g, c,
-        stream))
+        timing.device_counter("cast_live_rays", dev), stream))
     sweep_spans.launches += 1
     return nspan, spans, tile_sorted, rayfeat, best
 
@@ -525,34 +536,41 @@ def sweep_inputs(scene, origin, direction, mask, anyhit):
     spans, tile_sorted, rayfeat, best, trifeat) for rays padded to a
     multiple of TILE_R, and the sort permutation (None when the rays fit
     one tile) that put them in kernel order. On a CUDA tensor two kernels
-    and one torch.sort; on a CPU tensor their plain versions."""
-    origin, direction, mask, anyhit = pad_cast(origin, direction, mask,
-                                               anyhit)
-    r = origin.shape[0]
-    cl_min, cl_max = scene.cl_aabb_min, scene.cl_aabb_max
+    and one torch.sort; on a CPU tensor their plain versions. A span
+    rt.cast.prep; the padded R goes to the counter cast_lanes."""
+    with timing.span("rt.cast.prep"):
+        origin, direction, mask, anyhit = pad_cast(origin, direction, mask,
+                                                   anyhit)
+        r = origin.shape[0]
+        timing.count("cast_lanes", r)
+        cl_min, cl_max = scene.cl_aabb_min, scene.cl_aabb_max
 
-    perm = None
-    if r > TILE_R:
-        key = sweep_key(origin, direction, mask, cl_min, cl_max)
-        perm = torch.sort(key, stable=True).indices
-    args = sweep_spans(origin, direction, mask, anyhit, perm, cl_min, cl_max)
-    return (*args, scene.cl_trifeat.contiguous()), perm
+        perm = None
+        if r > TILE_R:
+            key = sweep_key(origin, direction, mask, cl_min, cl_max)
+            perm = torch.sort(key, stable=True).indices
+        args = sweep_spans(origin, direction, mask, anyhit, perm, cl_min,
+                           cl_max)
+        return (*args, scene.cl_trifeat.contiguous()), perm
 
 
 def _swept(scene, origin, direction, mask, anyhit) -> Hit:
     args, perm = sweep_inputs(scene, origin, direction, mask, anyhit)
-    best = sweep(*args)
-    if perm is not None:   # back to the callers' order
-        best = torch.empty_like(best).index_copy_(0, perm, best)
-    r_in = origin.shape[0]
-    best = best[:r_in]
-    t = torch.where(mask, best[:, 0], INF)
-    slot = torch.where(mask, best[:, 1].to(torch.int32), -1)
-    slot2tri = scene.cl_slot2tri
-    tri = torch.where(
-        slot >= 0,
-        slot2tri[torch.clamp(slot, 0, slot2tri.shape[0] - 1).long()], -1)
-    return Hit(t=t, tri=tri.to(torch.int32), inside=mask & (best[:, 2] > 0.5))
+    with timing.span("rt.cast.k1"):
+        best = sweep(*args)
+    with timing.span("rt.cast.finish"):
+        if perm is not None:   # back to the callers' order
+            best = torch.empty_like(best).index_copy_(0, perm, best)
+        r_in = origin.shape[0]
+        best = best[:r_in]
+        t = torch.where(mask, best[:, 0], INF)
+        slot = torch.where(mask, best[:, 1].to(torch.int32), -1)
+        slot2tri = scene.cl_slot2tri
+        tri = torch.where(
+            slot >= 0,
+            slot2tri[torch.clamp(slot, 0, slot2tri.shape[0] - 1).long()], -1)
+        return Hit(t=t, tri=tri.to(torch.int32),
+                   inside=mask & (best[:, 2] > 0.5))
 
 
 def closest_hit_swept(scene, origin, direction, mask=None,

@@ -25,6 +25,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils import timing
 from .intersect import (
     INF,
     Hit,
@@ -144,8 +145,9 @@ def closest_hit(scene, origin, direction, config, mask=None,
     mask=False lanes, the BVH and brute-force tracers trace every lane
     (callers gate on their own mask). any_hit: occlusion semantics, a
     tracer may stop at the first hit (is_hit is then the meaningful
-    field)."""
-    with torch.no_grad():
+    field). A span rt.cast under utils/timing.py's tracing()."""
+    with timing.span("rt.cast"), torch.no_grad():
+        timing.count("casts")
         return _cast(scene, origin.detach(), direction.detach(), config,
                      mask, any_hit)
 
@@ -154,12 +156,15 @@ def closest_hit_pair(scene, o_any, d_any, m_any, o_cls, d_cls, m_cls,
                      config):
     """The integrator's per-bounce cast pair, NEE shadow (any-hit) and
     bounce (closest) rays: one merged sweep on the sweep backend, two plain
-    casts on every other. Returns (hit_any, hit_cls)."""
-    if config.use_bvh and config.cast_backend == "sweep":
-        with torch.no_grad():
+    casts on every other. Returns (hit_any, hit_cls). One span rt.cast
+    either way."""
+    with timing.span("rt.cast"), torch.no_grad():
+        timing.count("casts")
+        if config.use_bvh and config.cast_backend == "sweep":
             return closest_hit_swept_pair(
                 scene, o_any.detach(), d_any.detach(), m_any,
                 o_cls.detach(), d_cls.detach(), m_cls)
-    return (closest_hit(scene, o_any, d_any, config, mask=m_any,
-                        any_hit=True),
-            closest_hit(scene, o_cls, d_cls, config, mask=m_cls))
+        return (_cast(scene, o_any.detach(), d_any.detach(), config, m_any,
+                      True),
+                _cast(scene, o_cls.detach(), d_cls.detach(), config, m_cls,
+                      False))

@@ -34,6 +34,7 @@ import torch.distributed as dist
 from ..models.camera import Camera
 from ..models.material import Material, MaterialTable
 from ..render import pixel_order, trace_pixels
+from ..utils import timing
 from ..utils.config import RenderConfig
 
 
@@ -134,12 +135,15 @@ def _grads(scene, camera, target, config, param, spp, rays_per_tile, row0,
     scene, camera = put(scene, camera, leaves)
     loss = torch.zeros((), dtype=torch.float32, device=scene.device)
     # forward and backward batch by batch: backward() frees the batch's
-    # graph and adds into the leaves' .grad
+    # graph and adds into the leaves' .grad (spans rt.loss and rt.backward
+    # under utils/timing.py's tracing())
     for pixel_id, rad in _row_batches(scene, camera, config, row0, n_rows,
                                       spp, rays_per_tile):
-        batch_loss = _batch_loss(pixel_id, rad, target, config, row0)
+        with timing.span("rt.loss"):
+            batch_loss = _batch_loss(pixel_id, rad, target, config, row0)
         if batch_loss.requires_grad:
-            batch_loss.backward(inputs=wrt)
+            with timing.span("rt.backward"):
+                batch_loss.backward(inputs=wrt)
         loss += batch_loss.detach()
     grads = [None if not x.requires_grad
              else torch.zeros_like(x) if x.grad is None else x.grad

@@ -15,7 +15,9 @@ Replaces the reference's frame loop + FBO ping-pong
 
 Everything runs on the scene's device. render_pass and finalize are forward
 only (torch.no_grad); trace_pixels is the differentiable per-batch trace
-that parallel/autodiff.py builds its losses on.
+that parallel/autodiff.py builds its losses on. Under utils/timing.py's
+tracing(): spans rt.pass, rt.batch (one trace_pixels batch) and
+rt.accumulate.
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ from .models.scene import SceneData
 from .ops import tonemap
 from .ops.integrator import trace_radiance
 from .ops.sampling import rand01
+from .utils import timing
 from .utils.config import RenderConfig, resolve_device
 
 BLOCK = 32  # pixel-block side: rays are traced in 32x32-block order
@@ -74,16 +77,19 @@ def trace_pixels(scene: SceneData, camera: Camera, pixel_id: torch.Tensor,
     Differentiable: the rays are generated here, per batch, so a camera
     that requires grad sits inside the batch's own graph. The forward
     render calls it under no_grad."""
-    w, h = config.width, config.height
-    px = (pixel_id % w).to(torch.float32)
-    py = (pixel_id // w).to(torch.float32)
-    if config.pixel_jitter:
-        ju = rand01(pixel_id, frame, 1001)
-        jv = rand01(pixel_id, frame, 1002)
-    else:
-        ju = jv = 0.5
-    origin, direction = camera.generate_rays((px + ju) / w, (py + jv) / h)
-    return trace_radiance(scene, origin, direction, pixel_id, frame, config)
+    with timing.span("rt.batch"):
+        w, h = config.width, config.height
+        px = (pixel_id % w).to(torch.float32)
+        py = (pixel_id // w).to(torch.float32)
+        if config.pixel_jitter:
+            ju = rand01(pixel_id, frame, 1001)
+            jv = rand01(pixel_id, frame, 1002)
+        else:
+            ju = jv = 0.5
+        origin, direction = camera.generate_rays((px + ju) / w,
+                                                 (py + jv) / h)
+        return trace_radiance(scene, origin, direction, pixel_id, frame,
+                              config)
 
 
 def _trace_rows(scene: SceneData, camera: Camera, frame: int,
@@ -110,10 +116,12 @@ def render_pass(scene: SceneData, camera: Camera, state: RenderState,
                 ) -> RenderState:
     """Advance the progressive render by spp_per_pass samples/pixel."""
     accum, n = state.accum, state.n_samples
-    for s in range(config.spp_per_pass):
-        sample = _trace_rows(scene, camera, n + s + 1, config, 0,
-                             config.height, rays_per_tile)
-        accum = accum + (sample - accum) / float(n + s + 1)
+    with timing.span("rt.pass"):
+        for s in range(config.spp_per_pass):
+            sample = _trace_rows(scene, camera, n + s + 1, config, 0,
+                                 config.height, rays_per_tile)
+            with timing.span("rt.accumulate"):
+                accum = accum + (sample - accum) / float(n + s + 1)
     return RenderState(accum=accum, n_samples=n + config.spp_per_pass)
 
 

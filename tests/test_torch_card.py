@@ -47,6 +47,7 @@ from opengl_ray_tracing_framework_tpu_torch.ops import sweep as tsweep
 from opengl_ray_tracing_framework_tpu_torch.probes import (
     card_perf, gather, launch_overhead, row_balance)
 from opengl_ray_tracing_framework_tpu_torch.render import _trace_rows
+from opengl_ray_tracing_framework_tpu_torch.utils import timing
 from opengl_ray_tracing_framework_tpu_torch.utils.config import RenderConfig
 
 WIDTHS = [256, 512, 1024, 302, 4096]
@@ -372,6 +373,47 @@ def test_swept_pair_past_the_shared_memory(loong_scale_scene):
     want = torch.stack([torch.where(mask, best[:, 0], tsweep.INF),
                         tri.float(), (mask & (best[:, 2] > 0.5)).float()], 1)
     _assert_same_records(got, want, "pair, 14,172 clusters", min_hits=0.2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t_blk,n_rays,ctas", [
+    (256, 128, 8),      # one tile: a cluster of 8 CTAs walks it
+    (256, 131072, 1),   # 1,024 tiles: one CTA a tile
+    (8, 8192, 2),       # 14,172 clusters: sweep_runs prepares the cast
+])
+def test_traced_counts_equal_plain(t_blk, n_rays, ctas, loong_scale_scene):
+    """Under utils/timing.py's tracing(), K1 (csrc/sweep.cu) adds the spans
+    each tile walked once per tile, whatever its CTAs a tile (8, 1 and 2
+    here), and sweep_spans / sweep_runs (csrc/sweep_prep.cu) the rays that
+    are masked on and enter some cluster: the same counts as sweep_plain's
+    `visited` and sweep_spans_plain on the same inputs, the live rays those
+    whose key is not dead."""
+    dev = _card()
+    scene = (_scene(t_blk, dev) if t_blk > 8 else
+             loong_scale_scene.build(cluster_size=t_blk, device=dev))
+    gen = torch.Generator(device=dev).manual_seed(n_rays)
+    o, d = _rays(n_rays, t_blk + 7, dev)
+    mask = torch.rand(n_rays, generator=gen, device=dev) < 0.9
+    anyhit = torch.rand(n_rays, generator=gen, device=dev) < 0.3
+    kargs, _ = tsweep.sweep_inputs(scene, o, d, mask, anyhit)
+    g = kargs[0].shape[0]
+    assert tsweep.nvcc.load("sweep").sweep_cluster_size(g, t_blk) == ctas
+    with timing.tracing(dev) as kernel:
+        tsweep.sweep_inputs(scene, o, d, mask, anyhit)
+        tsweep.sweep(*kargs[:4], kargs[4].clone(), kargs[5])
+    padded = tsweep.pad_cast(o, d, mask, anyhit)
+    lo, hi = scene.cl_aabb_min, scene.cl_aabb_max
+    with timing.tracing(dev) as plain:
+        tsweep.sweep_spans_plain(*padded, None, lo, hi)
+        tsweep.sweep_plain(*kargs)
+    walked = int(tsweep.sweep_plain.visited.sum())
+    live = int((tsweep.sweep_key_plain(*padded[:3], lo, hi)
+                != tsweep._DEAD_KEY).sum())
+    assert kernel.counters["k1_spans_walked"] == walked > 0
+    assert plain.counters["k1_spans_walked"] == walked
+    assert kernel.counters["cast_live_rays"] == live > 0
+    assert plain.counters["cast_live_rays"] == live
+    assert kernel.counters["cast_lanes"] == padded[0].shape[0]
 
 
 @pytest.mark.cuda

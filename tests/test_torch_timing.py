@@ -1,9 +1,9 @@
 """PyTorch port, the --timing breakdown: utils/timing.py's pass_breakdown
-has the JAX module's stages and `_meta`, each a finite positive time, and
-format_breakdown prints them (wall ms; device ms beside it when the stages
-ran on a CUDA device, which the CPU never fills)."""
-
-import math
+gives each span's host time a pass (total and self) from real render_pass
+calls under tracing(), with the JAX module's `_meta`; the spans cover the
+pass's wall time, and format_breakdown prints one row a span (the pass's
+device ms beside its wall ms when it ran on a CUDA device, which the CPU
+never fills)."""
 
 import pytest
 
@@ -23,42 +23,44 @@ def port_times():
     cam = Camera.make(position=(0.0, 0.5, -2.0), yaw=90.0, pitch=-8.0,
                       zoom=30.0, aspect=1.0, device="cpu")
     return pass_breakdown(scene, cam, CONFIG, rays_per_tile=SIZE * SIZE,
-                          repeats=1)
+                          repeats=2)
 
 
-def test_stages_and_meta_match_jax(port_times):
-    """The same stage keys and the same _meta as the JAX module's
-    pass_breakdown on the same config (its tnear stage takes tiles of
-    1024 rays, hence 32x32)."""
-    from opengl_ray_tracing_framework_tpu import RenderConfig as JConfig
-    from opengl_ray_tracing_framework_tpu.models.camera import (
-        Camera as JCamera)
-    from opengl_ray_tracing_framework_tpu.models.scene import (
-        build_test_scene as jbuild)
-    from opengl_ray_tracing_framework_tpu.utils.timing import (
-        pass_breakdown as jbreakdown)
-    _, jscene = jbuild()
-    jcam = JCamera.make(position=(0.0, 0.5, -2.0), yaw=90.0, pitch=-8.0,
-                        zoom=30.0, aspect=1.0)
-    ref = jbreakdown(jscene, jcam, JConfig(width=SIZE, height=SIZE,
-                                           max_bounce=BOUNCES),
-                     rays_per_tile=SIZE * SIZE, repeats=1)
+def _spans(times):
+    return {k: v for k, v in times.items()
+            if not k.startswith("_") and k != "full_pass"}
+
+
+def test_spans_cover_the_pass_wall_time(port_times):
+    """rt.pass's host time is the pass's wall time to within 10%, and the
+    self times of every span add up to it: each span lies inside rt.pass
+    and each instant of it is one span's own."""
+    spans = _spans(port_times)
     assert "_device" not in port_times   # the CPU has no device column
-    assert list(port_times) == list(ref)
-    assert port_times["_meta"] == ref["_meta"]
-    for k, v in port_times.items():
-        if not k.startswith("_"):
-            assert math.isfinite(v) and v > 0, k
+    whole = spans["rt.pass"]
+    assert whole["calls"] == 1
+    assert whole["total"] == pytest.approx(port_times["full_pass"], rel=0.1)
+    assert sum(v["self"] for v in spans.values()) == pytest.approx(
+        whole["total"], rel=1e-9)
+    for name, v in spans.items():
+        assert 0 <= v["self"] <= v["total"], name
 
 
-def test_estimated_pass_composes_the_stages(port_times):
-    t, meta = port_times, port_times["_meta"]
-    b = meta["bounces"]
-    want = meta["n_tiles"] * (
-        t["raygen"] + t["primary_cast"]
-        + b * (t["shadow_cast"] + t["bounce_cast"] + 2 * t["shade"]
-               + t["env"])) + t["accumulate"]
-    assert t["estimated_pass"] == pytest.approx(want, rel=1e-12)
+def test_breakdown_counts_a_pass(port_times):
+    """One batch of 1,024 rays a pass: per pass one rt.batch, one primary
+    cast and one merged cast a bounce run, and as many casts counted."""
+    spans, counts = _spans(port_times), port_times["_counters"]
+    assert port_times["_meta"] == {"rays_per_tile": 1024, "n_tiles": 1,
+                                   "bounces": 2, "pixels": 1024,
+                                   "rays_per_pass": 5120}
+    assert spans["rt.batch"]["calls"] == 1
+    bounces = spans["rt.bounce"]["calls"]
+    assert 1 <= bounces <= BOUNCES
+    assert spans["rt.cast"]["calls"] == bounces + 1
+    assert spans["rt.sync"]["calls"] == bounces + 1
+    assert counts["casts"] == bounces + 1
+    assert counts["cast_lanes"] >= 1024 + 2 * 128
+    assert 0 < counts["cast_live_rays"] < counts["cast_lanes"]
 
 
 def test_several_batches_and_a_ragged_tile():
@@ -72,20 +74,34 @@ def test_several_batches_and_a_ragged_tile():
     assert times["_meta"] == {"rays_per_tile": 100, "n_tiles": 2,
                               "bounces": 1, "pixels": 288,
                               "rays_per_pass": 864}
-    assert all(v > 0 for k, v in times.items() if not k.startswith("_"))
+    spans = _spans(times)
+    assert spans["rt.batch"]["calls"] == 3   # 100 + 100 + 88 pixels
+    assert all(v["total"] > 0 for v in spans.values())
+    assert times["full_pass"] > 0
+
+
+def test_format_breakdown_prints_one_row_a_span(port_times):
+    lines = format_breakdown(port_times).splitlines()
+    assert lines[0].split() == ["span", "calls", "host", "ms", "self", "ms"]
+    spans = list(_spans(port_times))
+    assert [ln.split()[0] for ln in lines[1:len(spans) + 1]] == spans
+    assert lines[1].split()[0] == "rt.pass"
+    assert lines[len(spans) + 1].startswith("pass wall ms")
+    assert lines[-2].startswith("pass rays/s")
+    assert lines[-1].startswith("a pass: casts ")
+    assert len(lines) == len(spans) + 4
 
 
 def test_format_breakdown_columns(port_times):
-    text = format_breakdown(port_times)
-    lines = text.splitlines()
-    assert lines[0].split() == ["stage", "wall", "ms"]
-    stages = [k for k in port_times if not k.startswith("_")]
-    assert [ln.split()[0] for ln in lines[1:len(stages) + 1]] == stages
-    assert lines[-1].startswith("pass rays/s")
-    with_device = dict(port_times, _device={k: 2e-3 for k in stages})
-    lines = format_breakdown(with_device).splitlines()
-    assert lines[0].split() == ["stage", "wall", "ms", "device", "ms"]
-    assert all(ln.split()[-1] == "2.00" for ln in lines[1:len(stages) + 1])
+    lines = format_breakdown(port_times).splitlines()
+    row = lines[1].split()
+    whole = port_times["rt.pass"]
+    assert row[1:] == [f"{whole['calls']:.1f}", f"{whole['total'] * 1e3:.2f}",
+                       f"{whole['self'] * 1e3:.2f}"]
+    assert "device ms" not in lines[-3]
+    with_device = dict(port_times, _device={"full_pass": 2e-3})
+    assert format_breakdown(with_device).splitlines()[-3].endswith(
+        "device ms 2.00")
 
 
 def test_cli_timing_prints_the_table_first(capsys):
@@ -93,5 +109,6 @@ def test_cli_timing_prints_the_table_first(capsys):
               "--max-bounce", "1", "--spp", "1", "--timing",
               "--progress-every", "1", "--out", "/dev/null"])
     err = capsys.readouterr().err
-    assert "stage              wall ms\n" in err
-    assert err.index("full_pass") < err.index("pass 1/1 (1 spp")
+    assert "span               calls    host ms    self ms\n" in err
+    assert err.index("rt.pass") < err.index("pass wall ms") \
+        < err.index("pass 1/1 (1 spp")
