@@ -10,8 +10,9 @@ when torch sees no CUDA device, and when anything below fails:
  2. build: nvcc compiles every source of csrc/ (sweep.cu, the span-sweep
     kernel K1; sweep_prep.cu, K1's preparation kernels sweep_key and
     sweep_spans; cluster_intersect.cu, the cluster-intersect kernel K2;
-    the four probe kernels probe_copy, probe_gather, probe_smem (with the
-    empty launch-floor kernel), probe_stream),
+    shade.cu, the forward bounce's shading kernels shade_bsdf and
+    shade_nee; the four probe kernels probe_copy, probe_gather,
+    probe_smem (with the empty launch-floor kernel), probe_stream),
     all started together;
  3. K1 against its plain version on the card, at the main path's shapes:
     the 81,922-triangle procedural scene (loong-100k's scale), a
@@ -53,7 +54,8 @@ when torch sees no CUDA device, and when anything below fails:
     HDR environment + MIS, tear-glass sphere, 1024x512 procedural HDR,
     sweep tracer; one warm-up pass and two timed passes, each fenced by a
     host copy; K1 and both preparation kernels must be launched and their
-    plain versions never called;
+    plain versions never called, and the shading kernels shade_bsdf and
+    shade_nee once a bounce each;
  6. card against CPU: render_radiance at 128x64, 2 spp, 8 bounces, on the
     card (kernel) and on the CPU (plain version), held to the hardware
     lane's image criterion (tests/test_tpu.py:57-60); then the same on
@@ -96,6 +98,14 @@ when torch sees no CUDA device, and when anything below fails:
     from L2 before its turn comes again), which is what the bound
     assumes: a time below the bound fails the run. The time with the
     inputs left in L2 is printed beside it and goes nowhere else;
+    Then the shading kernels (probes/shade_kernels.py) at 131,072 random
+    lanes that reach every lobe and medium, held to the plain halves:
+    shade_bsdf's alive and med_sampled equal on at least 99.99% of the
+    lanes, and there every output of each kernel within
+    tests/test_torch_shade.py's close_ill_conditioned limits (1e-5 +
+    1e-5 relative on all but 0.2% of the values, 1e-5 + 1e-4 relative
+    on all); each kernel's time (from HBM) no less than its bytes bound,
+    beside the plain halves' time;
 11. the probes as a user runs them (probes/launch_overhead.py, gather.py,
     card_perf.py, kernel_build.py): microseconds per CTA, lookups per
     second from global and shared memory, the chained lookups at every S,
@@ -109,7 +119,8 @@ when torch sees no CUDA device, and when anything below fails:
     material, one warm-up and one timed step fenced by a host copy of the
     gradients: loss and every gradient finite, one nonzero, the forward
     pass's count of K1 launches and not one more (the backward launches no
-    kernel), no plain call; camera_grad and geometry_grad at 128x64;
+    kernel) and neither shading kernel (autograd records the plain
+    halves), no plain call; camera_grad and geometry_grad at 128x64;
     material_grad at 128x64 on the scene in blocks of 1,024 against the
     same step on blocks of 256 (loss to rtol 1e-5, leaves to 2e-4 of their
     largest entry); card
@@ -174,7 +185,8 @@ function, is timed alone beside them); the
 other probe kernels have one each (an add of a slice, index_select,
 embedding_bag), timed here and used nowhere in the port. The kernels line
 has one entry per kernel: csrc/probe_gather.cu holds two, the gather
-(probe_gather) and the chained lookups (probe_chained).
+(probe_gather) and the chained lookups (probe_chained), and csrc/shade.cu
+two, shade_bsdf and shade_nee, which replace no TPU kernel.
 
 It prints one line of numbers per phase, then a JSON line describing the
 kernels, then {"ok": true, "device": {...}} as the last line. --profile
@@ -211,8 +223,9 @@ PREP_RAYS = 131072          # the preparation kernels' primary cast
 SMALL_T = 8                 # blocks of 8: 14,172 clusters, past the
                             # preparation's shared-memory path
 PORT = "opengl_ray_tracing_framework_tpu_torch"
-EXPECTED_KERNELS = {"sweep", "sweep_prep", "cluster_intersect", "probe_copy",
-                    "probe_gather", "probe_smem", "probe_stream"}
+EXPECTED_KERNELS = {"sweep", "sweep_prep", "cluster_intersect", "shade",
+                    "probe_copy", "probe_gather", "probe_smem",
+                    "probe_stream"}
 
 
 def fail(msg: str) -> None:
@@ -658,6 +671,7 @@ def grad_phases(ortf, scene, camera, config, k1_per_pass, wide_scene):
         Material, MaterialTable, preset_materials)
     from opengl_ray_tracing_framework_tpu_torch.ops import (
         cluster_intersect as ci)
+    from opengl_ray_tracing_framework_tpu_torch.ops import shade
     from opengl_ray_tracing_framework_tpu_torch.ops import sweep as sw
     from opengl_ray_tracing_framework_tpu_torch.parallel import autodiff
 
@@ -700,6 +714,7 @@ def grad_phases(ortf, scene, camera, config, k1_per_pass, wide_scene):
         sw.sweep.launches = 0
         sw.sweep_plain.calls = 0
         ci.cluster_intersect.launches = 0
+        shade.shade_bsdf.launches = shade.shade_nee.launches = 0
         t0 = time.perf_counter()
         loss, grads = autodiff.material_grad(
             scene, camera, target, config, spp=1,
@@ -722,6 +737,9 @@ def grad_phases(ortf, scene, camera, config, k1_per_pass, wide_scene):
                  "must launch none")
         if plain_calls or ci.cluster_intersect.launches:
             fail("material_grad left the sweep kernel's path")
+        if shade.shade_bsdf.launches or shade.shade_nee.launches:
+            fail("material_grad launched a shading kernel, which has no "
+                 "backward")
     material_ref = dict(target=target, loss=loss, grads=grads)
 
     # camera and geometry gradients at 128x64
@@ -1237,11 +1255,12 @@ def main() -> int:
         cluster_intersect as ci)
     from opengl_ray_tracing_framework_tpu_torch.ops import integrator
     from opengl_ray_tracing_framework_tpu_torch.ops import schedule as sched
+    from opengl_ray_tracing_framework_tpu_torch.ops import shade
     from opengl_ray_tracing_framework_tpu_torch.ops import sweep as sw
     from opengl_ray_tracing_framework_tpu_torch import probes
     from opengl_ray_tracing_framework_tpu_torch.probes import (  # noqa: F401
         kernel_build,   # its import registers every kernel's source
-        prep_kernels, staging)
+        prep_kernels, shade_kernels, staging)
     from opengl_ray_tracing_framework_tpu_torch.utils import nvcc
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1650,6 +1669,7 @@ def main() -> int:
     sw.sweep_key_plain.calls = sw.sweep_spans_plain.calls = 0
     ci.cluster_intersect.launches = 0
     ci.cluster_intersect_plain.calls = 0
+    shade.shade_bsdf.launches = shade.shade_nee.launches = 0
     first_passes = []   # phase 14 holds the sharded passes against them
     img, pass_s = timed_passes(ortf, scene, camera, config, 3,
                                keep=first_passes)
@@ -1670,7 +1690,13 @@ def main() -> int:
           f"{prep_launches['sweep_key']} / {prep_launches['sweep_spans']} "
           f"({prep_launches['sweep_key'] // 3} / "
           f"{prep_launches['sweep_spans'] // 3} per pass), plain calls "
-          f"{prep_plain[0]} / {prep_plain[1]} | image mean {mean:.4f}")
+          f"{prep_plain[0]} / {prep_plain[1]} | shade_bsdf / shade_nee "
+          f"launches {shade.shade_bsdf.launches} / {shade.shade_nee.launches}"
+          f" | image mean {mean:.4f}")
+    shade_launches = shade.shade_bsdf.launches
+    if not 0 < shade.shade_nee.launches == shade_launches:
+        fail(f"the render launched shade_bsdf {shade_launches} and "
+             f"shade_nee {shade.shade_nee.launches} times")
     if k1_launches <= 0:
         fail("the render launched no sweep kernel")
     if plain_calls != 0:
@@ -1807,8 +1833,14 @@ def main() -> int:
         compare_images(f"{label} vs sweep", got, sweep_1spp,
                        f"128x64, 1 spp, {time.perf_counter() - t0:.2f} s | ")
 
-    # 10-11. the probe kernels and the probes; 12. the gradient path
+    # 10-11. the probe kernels, the shading kernels and the probes; 12. the
+    # gradient path
     probe_entries, probe_counts = probe_phases(scene, camera, config)
+    shaded = shade_kernels.run()
+    for name in ("shade_bsdf", "shade_nee"):
+        row = shaded[name]
+        if not row["within"] or row["us"] < row["bound_us"]:
+            fail(f"{name}: {row}")
     grad_ref = grad_phases(ortf, scene, camera, config, k1_launches // 3,
                            wide_scenes[1024])
 
@@ -1856,6 +1888,14 @@ def main() -> int:
         entry("cluster_intersect",
               "opengl_ray_tracing_framework_tpu/ops/intersect_pallas.py:66",
               k2_launches, k2, k2_main),
+        *({"name": name, "route": "cuda", "source": f"{PORT}/csrc/shade.cu",
+           "replaces": None, "launches": shade_launches,
+           "max_abs_err": shaded[name]["max_abs_err"],
+           "ms": shaded[name]["us"] / 1e3,
+           "plain_ms": shaded[name]["plain_ms"],
+           "bound_ms": shaded[name]["bound_us"] / 1e3,
+           "bound_by": shaded[name]["bound_by"], "library_ms": None}
+          for name in ("shade_bsdf", "shade_nee")),
         *({**probe_entries[name], "launches": probe_counts[name]}
           for name in ("probe_copy", "probe_gather", "probe_chained",
                        "probe_smem", "probe_stream")),

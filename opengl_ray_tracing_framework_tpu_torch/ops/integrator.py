@@ -32,6 +32,10 @@ the output is an in-place index_put_: nothing saved for the backward reads
 that tensor, and a lane a later bounce overwrites gets its gradient from
 that later write only, which is the compaction's exactness argument again.
 
+The BSDF bounce's shading before and after its cast is ops/shade.py's
+two halves: csrc/shade.cu's kernels on a CUDA device when autograd records
+nothing, the plain PyTorch versions otherwise.
+
 Spans (utils/timing.py's tracing()): rt.bounce around each bounce, inside
 it rt.shade.surface / .light / .bsdf / .env and the cast's rt.cast, and
 rt.sync around each torch.nonzero of the compaction, the render loop's
@@ -43,7 +47,6 @@ from __future__ import annotations
 
 import torch
 
-from ..models.material import MEDIUM_ABSORB, MEDIUM_EMISSIVE, MEDIUM_SCATTER
 from ..utils.timing import count, span
 from . import disney
 from .envmap import (
@@ -58,25 +61,18 @@ from .intersect import surface_attributes
 from .sampling import (
     cranley_patterson,
     onb,
-    phase_hg,
     rand01,
-    sample_hg,
     sobol_all_dims,
     sobol_bounce_uv,
 )
+from .shade import (
+    EPS_PDF,
+    mis_weight,
+    safe_rcp,
+    shade_bsdf,
+    shade_nee,
+)
 from .traverse import closest_hit, closest_hit_pair
-
-_EPS_PDF = 1e-10
-
-
-def mis_weight(a, b):
-    """Power heuristic a^2 / (a^2 + b^2) (misMixWeight, glsl:1285-1288)."""
-    t = a * a
-    return t / torch.clamp(t + b * b, min=1e-20)
-
-
-def _safe_rcp(x, eps=_EPS_PDF):
-    return 1.0 / torch.clamp(x, min=eps)
 
 
 def _env_radiance(scene, direction, config):
@@ -146,67 +142,20 @@ def _bounce(scene, b, frame, sobol_point, config, pid, origin, direction,
             light_fr = light_fr * scene.env_intensity
             facing = torch.sum(n * l_dir, dim=-1) > 0.0
 
+    # 2-3. sample the BSDF and the media; on the card, when autograd
+    # records nothing, this and the NEE's contribution are one kernel each
     with span("rt.shade.bsdf"):
-        # 2. sample the BSDF
-        u, vv = sobol_bounce_uv(sobol_point, b)
-        xi1 = cranley_patterson(u, rand01(pid, frame, 8 * b + 2))
-        xi2 = cranley_patterson(vv, rand01(pid, frame, 8 * b + 3))
-        xi3 = rand01(pid, frame, 8 * b + 4)
-
-        smp = disney.disney_sample(mat, v, n, xi1, xi2, xi3)
-        alive = smp.pdf > _EPS_PDF
-
-        # 3. media on refraction (glsl:1429-1458)
-        refract = alive & smp.is_refract
-        med_absorb = refract & (mat.medium_type == MEDIUM_ABSORB)
-        med_emissive = refract & (mat.medium_type == MEDIUM_EMISSIVE)
-        med_scatter_t = refract & (mat.medium_type == MEDIUM_SCATTER)
-
-        dens = mat.medium_density
-        absorb_mult = torch.exp(-(1.0 - mat.medium_color)
-                                * t[..., None] * dens[..., None])
-        lo = lo + torch.where(
-            med_emissive[..., None],
-            mat.medium_color * (t * dens)[..., None] * history, 0.0)
-
-        scatter_dist = torch.minimum(
-            -torch.log(torch.clamp(xi3, min=1e-12)) * _safe_rcp(dens, 1e-6),
-            t)
-        med_sampled = med_scatter_t & (scatter_dist < t)
-        hg_dir = sample_hg(v, mat.medium_anisotropy, xi1, xi2)
-        hg_pdf = phase_hg(torch.sum(v * hg_dir, dim=-1),
-                          mat.medium_anisotropy)
-
-        # throughput & next ray
-        surf_mult = smp.f * _safe_rcp(smp.pdf)[..., None]
-        surf_mult = torch.where(med_absorb[..., None],
-                                surf_mult * absorb_mult, surf_mult)
-        scatter_mult = mat.medium_color * torch.exp(-scatter_dist)[..., None]
-        mult = torch.where(med_sampled[..., None], scatter_mult, surf_mult)
-        new_history = torch.where(alive[..., None], history * mult, history)
-
-        new_dir = torch.where(med_sampled[..., None], hg_dir, smp.direction)
-        # glsl:1450 marches straight through the surface to the scatter point
-        scatter_org = hit_point + direction * scatter_dist[..., None]
-        new_org = torch.where(med_sampled[..., None], scatter_org, hit_point)
-
-        # mixture pdf of the sampled direction, for env MIS (glsl:1466-1474)
-        _, pdf_eval_dir = disney.disney_eval(mat, v, n, new_dir)
-        pdf_for_mis = torch.where(med_sampled, hg_pdf, pdf_eval_dir)
+        lo, new_history, new_org, new_dir, alive, med_sampled, pdf_for_mis \
+            = shade_bsdf(b, frame, sobol_point, pid, mat, v, n, hit_point,
+                         direction, t, history, lo)
 
     # 4. shadow + bounce rays in one cast
     if config.enable_env_map:
         shadow, nxt = closest_hit_pair(scene, hit_point, l_dir, facing,
                                        new_org, new_dir, alive, config)
         with span("rt.shade.light"):
-            vis = facing & ~shadow.is_hit
-            f_eval, pdf_eval = disney.disney_eval(mat, v, n, l_dir)
-            w = mis_weight(light_pdf, pdf_eval)
-            if not config.enable_mis:
-                w = torch.ones_like(w)
-            contrib = (w * _safe_rcp(light_pdf))[..., None] \
-                * history * light_fr * f_eval
-            lo = lo + torch.where(vis[..., None], contrib, 0.0)
+            lo = shade_nee(mat, v, n, l_dir, light_pdf, light_fr, facing,
+                           shadow.is_hit, history, lo, config.enable_mis)
     else:
         nxt = closest_hit(scene, new_org, new_dir, config, mask=alive)
 
@@ -266,8 +215,8 @@ def _bounce_brdf(scene, b, frame, sobol_point, config, pid, origin,
         f_r, pdf_brdf = disney.brdf_evaluate(mat, v, n, l_dir, tangent,
                                              bitangent)
         ndotl = torch.abs(torch.sum(n * l_dir, dim=-1))
-        alive = pdf_brdf > _EPS_PDF
-        mult = f_r * (ndotl * _safe_rcp(pdf_brdf))[..., None]
+        alive = pdf_brdf > EPS_PDF
+        mult = f_r * (ndotl * safe_rcp(pdf_brdf))[..., None]
         new_history = torch.where(alive[..., None], history * mult, history)
 
     # shadow + bounce rays in one cast
@@ -280,7 +229,7 @@ def _bounce_brdf(scene, b, frame, sobol_point, config, pid, origin,
                                                     tangent, bitangent)
             ndotl_nee = torch.abs(torch.sum(n * l_dir_nee, dim=-1))
             w = mis_weight(light_pdf, pdf_eval)
-            contrib = (w * ndotl_nee * _safe_rcp(light_pdf))[..., None] \
+            contrib = (w * ndotl_nee * safe_rcp(light_pdf))[..., None] \
                 * history * light_fr * f_eval
             lo = lo + torch.where(vis[..., None], contrib, 0.0)
     else:

@@ -5,10 +5,11 @@ sm_90a into build/torch_kernels/ beside the package (a directory git
 ignores), named by a hash of every file of csrc/ (the kernels share
 headers) and of the flags so an edited source or header is rebuilt, and
 loaded with ctypes. A wrapper module registers its source by name at
-import, with the function that declares the library's C signatures and the
-smallest real launch through its wrapper: `KERNELS` is what the smoke test
-builds and what probes/kernel_build.py measures. Nothing is built, loaded
-or launched at import time.
+import, with the function that declares the library's C signatures, the
+smallest real launch through its wrapper and any flags of that source
+alone: `KERNELS` is what the smoke test builds and what
+probes/kernel_build.py measures. Nothing is built, loaded or launched at
+import time.
 """
 
 from __future__ import annotations
@@ -30,16 +31,18 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 LEAD_CYCLES = 1 << 19   # ~0.26 ms at 1.98 GHz: see launch_events
 KERNELS: dict = {}   # source name -> (declare(lib), smoke(device) -> launch)
+FLAGS: dict = {}     # source name -> nvcc flags after NVCC_FLAGS
 _LOADED: dict = {}
 
 
-def register(name: str, declare, smoke) -> None:
+def register(name: str, declare, smoke, flags: tuple = ()) -> None:
     """Name csrc/<name>.cu as a kernel of the package. declare(lib) sets the
     C signatures of its loaded library and returns it; smoke(device) puts
     the smallest real inputs on the device and returns a function without
     arguments that launches the kernel on them through its wrapper and
-    returns the result."""
+    returns the result; flags are added to NVCC_FLAGS for this source."""
     KERNELS[name] = (declare, smoke)
+    FLAGS[name] = tuple(flags)
 
 
 def _nvcc() -> str:
@@ -53,8 +56,12 @@ def _nvcc() -> str:
     return found
 
 
+def _flags(name: str) -> tuple:
+    return NVCC_FLAGS + FLAGS.get(name, ())
+
+
 def library_path(name: str) -> Path:
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(_flags(name)).encode())
     for src in sorted(CSRC.glob("*.cu*")):
         digest.update(src.name.encode() + b"\0" + src.read_bytes())
     digest = digest.hexdigest()
@@ -68,7 +75,8 @@ def compile_source(name: str, out: Path, csrc: Path = CSRC
     the cache. Returns (seconds, compiler log)."""
     t0 = time.perf_counter()
     proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", str(out), str(Path(csrc) / f"{name}.cu")],
+        [_nvcc(), *_flags(name), "-o", str(out),
+         str(Path(csrc) / f"{name}.cu")],
         capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed on {name}.cu:\n{proc.stderr}")

@@ -33,9 +33,10 @@ Spans (the names are read by the benchmark and PERF.md):
   rt.bounce        one _bounce / _bounce_brdf call of ops/integrator.py
   rt.shade.surface surface_attributes (and the BRDF's onb)
   rt.shade.light   the NEE light sample; after the cast, its shadow-tested
-                   contribution
+                   contribution (on the card the shade_nee kernel)
   rt.shade.bsdf    disney_sample + the media + disney_eval of the sampled
-                   direction (BRDF: sample_brdf + brdf_evaluate)
+                   direction, or the shade_bsdf kernel (ops/shade.py; BRDF:
+                   sample_brdf + brdf_evaluate)
   rt.shade.env     after the cast, the MIS miss and the emissive pickup
   rt.sync          each host <-> device sync of the render loop: the two
                    torch.nonzero calls of _bounce_loop
@@ -49,6 +50,9 @@ Counters:
   bounces          bounces run (rt.bounce spans)
   bounce_lanes     live lanes at each bounce's start, summed
   syncs            rt.sync spans
+  shade_fused_lanes  lanes shaded by csrc/shade.cu's shade_bsdf kernel,
+                   counted at its launch (ops/shade.py); over bounce_lanes,
+                   the share of the bounces the kernels shaded
   k1_spans_walked  (device) spans K1 walked, once per tile
                    (csrc/sweep.cu; sweep_plain on the CPU)
   cast_live_rays   (device) rays of the sweep's casts that are masked on
@@ -74,7 +78,8 @@ import torch
 
 from .config import resolve_device
 
-HOST_COUNTERS = ("casts", "cast_lanes", "bounces", "bounce_lanes", "syncs")
+HOST_COUNTERS = ("casts", "cast_lanes", "bounces", "bounce_lanes", "syncs",
+                 "shade_fused_lanes")
 DEVICE_COUNTERS = ("k1_spans_walked", "cast_live_rays")
 
 _ON = False                           # tracing(): the one test span() makes
