@@ -1,9 +1,10 @@
 """Treelet clustering of the SAH BVH for the TPU wavefront tracer.
 
-A numpy copy of opengl_ray_tracing_framework_tpu/models/clusters.py,
+A numpy port of opengl_ray_tracing_framework_tpu/models/clusters.py,
 equal in what it computes (tests/test_torch_host.py checks the arrays
-byte for byte): the JAX package cannot be imported without importing
-jax.
+byte for byte), its features written for every triangle at once rather
+than a cluster at a time: the JAX package cannot be imported without
+importing jax.
 
 The reference traverses a deep per-ray BVH with an explicit stack and
 random-access node/triangle fetches (hitBVH, fragment_shader_ray_tracing
@@ -122,54 +123,45 @@ def build_clusters(bvh: FlatBVH, p1: np.ndarray, p2: np.ndarray,
     c = len(cuts)
     t_blk = max(8, int(max_tris))
 
-    aabb_min = np.zeros((c, 3), np.float32)
-    aabb_max = np.zeros((c, 3), np.float32)
+    node, firsts, counts = np.asarray(cuts, np.int64).reshape(-1, 3).T
+    assert (counts <= t_blk).all(), (counts.max(), t_blk)
+    aabb_min = bvh.aabb_min[node]
+    aabb_max = bvh.aabb_max[node]
+    firsts, counts = firsts.astype(np.int32), counts.astype(np.int32)
     trifeat = np.zeros((c, N_RAY_FEAT, N_GROUPS * t_blk), np.float32)
     slot2tri = np.full(c * t_blk, -1, np.int32)
-    firsts = np.zeros(c, np.int32)
-    counts = np.zeros(c, np.int32)
 
-    e1_all = p2 - p1
-    e2_all = p3 - p1
-    n_all = np.cross(e1_all, e2_all)
+    e1 = p2 - p1
+    e2 = p3 - p1
+    n = np.cross(e1, e2)
+    c1 = np.einsum("ij,ij->i", p1, n)
+    p1xe2 = np.cross(p1, e2)
+    p1xe1 = np.cross(p1, e1)
+    nlen = np.sqrt(np.maximum((n * n).sum(-1), 1e-30))
 
-    for ci, (node, first, cnt) in enumerate(cuts):
-        assert cnt <= t_blk, (cnt, t_blk)
-        sl = slice(first, first + cnt)
-        aabb_min[ci] = bvh.aabb_min[node]
-        aabb_max[ci] = bvh.aabb_max[node]
-        firsts[ci] = first
-        counts[ci] = cnt
-        slot2tri[ci * t_blk: ci * t_blk + cnt] = np.arange(
-            first, first + cnt, dtype=np.int32)
-
-        q1 = p1[sl]
-        e1 = e1_all[sl]
-        e2 = e2_all[sl]
-        n = n_all[sl]
-        c1 = np.einsum("ij,ij->i", q1, n)
-        p1xe2 = np.cross(q1, e2)
-        p1xe1 = np.cross(q1, e1)
-        nlen = np.sqrt(np.maximum((n * n).sum(-1), 1e-30))
-
-        f = trifeat[ci]
-        g = t_blk
-        # group A (cols 0..T-1): A = d.n  -> d rows get n
-        f[3:6, 0:cnt] = n.T
-        # group TN (cols T..2T-1): TN = c1 - o.n
-        f[0:3, g:g + cnt] = -n.T                # o rows: -n
-        f[9, g:g + cnt] = c1
-        # group U (cols 2T..3T-1): U = (oxd).e2 + d.(p1 x e2)
-        f[3:6, 2 * g:2 * g + cnt] = p1xe2.T
-        f[6:9, 2 * g:2 * g + cnt] = e2.T
-        # group V (cols 3T..4T-1): V = -(oxd).e1 - d.(p1 x e1)
-        f[3:6, 3 * g:3 * g + cnt] = -p1xe1.T
-        f[6:9, 3 * g:3 * g + cnt] = -e1.T
-        # parallel threshold E (ray-independent): row EPS_ROW of group A,
-        # read directly by the kernels (rayfeat row 10 is 0, so the A
-        # matmul output is unaffected)
-        f[EPS_ROW, 0:cnt] = PARALLEL_EPS * nlen
-        # padded slots: everything 0 => A=0, E=0 -> |A| <= E -> miss
+    # every triangle's cluster and lane (slot = cluster * T + lane)
+    cl = np.repeat(np.arange(c), counts)
+    lane = np.arange(cl.size) - np.repeat(np.cumsum(counts) - counts, counts)
+    tri = np.repeat(firsts, counts) + lane
+    slot2tri.reshape(c, t_blk)[cl, lane] = tri
+    f = trifeat.transpose(0, 2, 1)   # (C, 4T, 16): a slot's rows
+    g = t_blk
+    # group A (cols 0..T-1): A = d.n  -> d rows get n
+    f[cl, lane, 3:6] = n[tri]
+    # group TN (cols T..2T-1): TN = c1 - o.n
+    f[cl, g + lane, 0:3] = -n[tri]            # o rows: -n
+    f[cl, g + lane, 9] = c1[tri]
+    # group U (cols 2T..3T-1): U = (oxd).e2 + d.(p1 x e2)
+    f[cl, 2 * g + lane, 3:6] = p1xe2[tri]
+    f[cl, 2 * g + lane, 6:9] = e2[tri]
+    # group V (cols 3T..4T-1): V = -(oxd).e1 - d.(p1 x e1)
+    f[cl, 3 * g + lane, 3:6] = -p1xe1[tri]
+    f[cl, 3 * g + lane, 6:9] = -e1[tri]
+    # parallel threshold E (ray-independent): row EPS_ROW of group A,
+    # read directly by the kernels (rayfeat row 10 is 0, so the A
+    # matmul output is unaffected)
+    f[cl, lane, EPS_ROW] = PARALLEL_EPS * nlen[tri]
+    # padded slots: everything 0 => A=0, E=0 -> |A| <= E -> miss
 
     return ClusterSet(aabb_min=aabb_min, aabb_max=aabb_max, trifeat=trifeat,
                       slot2tri=slot2tri, first=firsts, count=counts)

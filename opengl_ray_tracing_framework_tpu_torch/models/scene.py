@@ -23,6 +23,7 @@ from .camera import Camera
 from .clusters import build_clusters
 from .hdr import build_env_fetch, build_hdr_cache, load_hdr, make_gradient_hdr
 from .material import Material, MaterialTable, preset_materials
+from ..utils import timing
 from ..utils.config import resolve_device
 
 DEFAULT_ASSETS_DIR = os.environ.get("ORTF_ASSETS", "resources")
@@ -171,6 +172,12 @@ class Scene:
               cluster_size: int = 256, device=None) -> SceneData:
         if not self._tris:
             raise ValueError("scene has no objects")
+        with timing.span("rt.build"):
+            return self._build(leaf_size, bvh_method, env_intensity,
+                               env_angle, cluster_size, device)
+
+    def _build(self, leaf_size, bvh_method, env_intensity, env_angle,
+               cluster_size, device) -> SceneData:
         parts = [np.concatenate([t[k] for t in self._tris])
                  for k in range(6)]
         p1, p2, p3, n1, n2, n3 = parts
@@ -178,38 +185,45 @@ class Scene:
             np.full(t[0].shape[0], slot, np.int32)
             for t, slot in zip(self._tris, self._mat_slots)])
 
-        bvh = build_bvh(p1, p2, p3, leaf_size=leaf_size, method=bvh_method)
-        perm = bvh.perm
-        p1, p2, p3 = p1[perm], p2[perm], p3[perm]
-        n1, n2, n3 = n1[perm], n2[perm], n3[perm]
-        mat_idx = mat_idx[perm]
+        with timing.span("rt.build.bvh"):
+            bvh = build_bvh(p1, p2, p3, leaf_size=leaf_size,
+                            method=bvh_method)
+            perm = bvh.perm
+            p1, p2, p3 = p1[perm], p2[perm], p3[perm]
+            n1, n2, n3 = n1[perm], n2[perm], n3[perm]
+            mat_idx = mat_idx[perm]
 
-        clusters = build_clusters(bvh, p1, p2, p3, max_tris=cluster_size)
+        with timing.span("rt.build.clusters"):
+            clusters = build_clusters(bvh, p1, p2, p3,
+                                      max_tris=cluster_size)
 
         tri_attr = np.zeros((20, p1.shape[0]), np.float32)
         for row, a in zip(range(0, 18, 3), (p1, p2, p3, n1, n2, n3)):
             tri_attr[row:row + 3] = a.T
         tri_attr[18] = mat_idx.astype(np.float32)
 
-        hdr = self._hdr if self._hdr is not None else make_gradient_hdr()
-        cache = build_hdr_cache(hdr)
-        return scene_from_numpy(dict(
-            p1=p1, p2=p2, p3=p3, n1=n1, n2=n2, n3=n3, mat_idx=mat_idx,
-            materials={f: np.stack([np.asarray(getattr(m, f))
-                                    for m in self._materials])
-                       for f in Material._fields},
-            bvh_left=bvh.left, bvh_right=bvh.right,
-            bvh_count=bvh.count, bvh_first=bvh.first,
-            bvh_min=bvh.aabb_min, bvh_max=bvh.aabb_max,
-            hdr_map=hdr,
-            env_intensity=np.float32(env_intensity),
-            env_angle=np.float32(env_angle),
-            cl_aabb_min=clusters.aabb_min, cl_aabb_max=clusters.aabb_max,
-            cl_trifeat=clusters.trifeat, cl_slot2tri=clusters.slot2tri,
-            tri_attr=tri_attr,
-            env_fetch=build_env_fetch(hdr, cache),
-            hdr_cache=cache,
-        ), device=device)
+        with timing.span("rt.build.env"):
+            hdr = self._hdr if self._hdr is not None else make_gradient_hdr()
+            cache = build_hdr_cache(hdr)
+            env_fetch = build_env_fetch(hdr, cache)
+        with timing.span("rt.build.upload"):
+            return scene_from_numpy(dict(
+                p1=p1, p2=p2, p3=p3, n1=n1, n2=n2, n3=n3, mat_idx=mat_idx,
+                materials={f: np.stack([np.asarray(getattr(m, f))
+                                        for m in self._materials])
+                           for f in Material._fields},
+                bvh_left=bvh.left, bvh_right=bvh.right,
+                bvh_count=bvh.count, bvh_first=bvh.first,
+                bvh_min=bvh.aabb_min, bvh_max=bvh.aabb_max,
+                hdr_map=hdr,
+                env_intensity=np.float32(env_intensity),
+                env_angle=np.float32(env_angle),
+                cl_aabb_min=clusters.aabb_min, cl_aabb_max=clusters.aabb_max,
+                cl_trifeat=clusters.trifeat, cl_slot2tri=clusters.slot2tri,
+                tri_attr=tri_attr,
+                env_fetch=env_fetch,
+                hdr_cache=cache,
+            ), device=device)
 
 
 # Reference scene presets (InitMesh, Scene.h:111-162)

@@ -537,13 +537,19 @@ def sweep_inputs(scene, origin, direction, mask, anyhit):
     multiple of TILE_R, and the sort permutation (None when the rays fit
     one tile) that put them in kernel order. On a CUDA tensor two kernels
     and one torch.sort; on a CPU tensor their plain versions. A span
-    rt.cast.prep; the padded R goes to the counter cast_lanes."""
+    rt.cast.prep; the padded R goes to the counter cast_lanes, R x C (the
+    ray x cluster slab tests each preparation kernel makes) to
+    cast_pairs, and a cast past SMEM_CLUSTERS clusters (sweep_runs) adds
+    one to cast_runs."""
     with timing.span("rt.cast.prep"):
         origin, direction, mask, anyhit = pad_cast(origin, direction, mask,
                                                    anyhit)
         r = origin.shape[0]
-        timing.count("cast_lanes", r)
         cl_min, cl_max = scene.cl_aabb_min, scene.cl_aabb_max
+        c = cl_min.shape[0]
+        timing.count("cast_lanes", r)
+        timing.count("cast_pairs", r * c)
+        timing.count("cast_runs", int(c > SMEM_CLUSTERS))
 
         perm = None
         if r > TILE_R:

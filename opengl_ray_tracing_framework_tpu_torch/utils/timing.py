@@ -42,11 +42,24 @@ Spans (the names are read by the benchmark and PERF.md):
                    torch.nonzero calls of _bounce_loop
   rt.loss          parallel/autodiff.py::_batch_loss in _grads
   rt.backward      the batch loss's backward in _grads
+  rt.build         models/scene.py::Scene.build, the host-side scene
+                   build, around:
+  rt.build.bvh     the SAH BVH (models/bvh.py::build_bvh)
+  rt.build.clusters  the treelet clusters and their intersection features
+                   (models/clusters.py::build_clusters)
+  rt.build.env     the HDR tables (build_hdr_cache, build_env_fetch)
+  rt.build.upload  the arrays turned into the SceneData's tensors on the
+                   device (scene_from_numpy)
 
 Counters:
   casts            rt.cast spans (one merged pair counts one)
   cast_lanes       the sweep's lanes launched: each cast's R padded to a
                    whole number of 128-ray tiles (ops/sweep.py)
+  cast_pairs       the ray x cluster slab tests of K1(a) a cast: its
+                   padded R x the scene's C (sweep_key and sweep_spans /
+                   sweep_runs each test every pair once)
+  cast_runs        casts past SMEM_CLUSTERS clusters, which take
+                   sweep_runs and its (G, C) scratch (ops/sweep.py)
   bounces          bounces run (rt.bounce spans)
   bounce_lanes     live lanes at each bounce's start, summed
   syncs            rt.sync spans
@@ -78,8 +91,8 @@ import torch
 
 from .config import resolve_device
 
-HOST_COUNTERS = ("casts", "cast_lanes", "bounces", "bounce_lanes", "syncs",
-                 "shade_fused_lanes")
+HOST_COUNTERS = ("casts", "cast_lanes", "cast_pairs", "cast_runs", "bounces",
+                 "bounce_lanes", "syncs", "shade_fused_lanes")
 DEVICE_COUNTERS = ("k1_spans_walked", "cast_live_rays")
 
 _ON = False                           # tracing(): the one test span() makes
