@@ -36,12 +36,17 @@ when torch sees no CUDA device, and when anything below fails:
     beside its plain version, the stable torch.sort of the keys and its
     bound (probes/prep_kernels.py's run_case), and the SASS instructions
     per (ray, cluster) pair of each kernel's slab-test loop by pipe; then
-    past the 8,192 clusters sweep_spans holds in shared memory (its
-    sorted-run path, sweep_runs): 8,193 boxes that every ray enters (every
-    tile minimum finite), and the primary cast and pair on the scene
-    rebuilt in blocks of 8 (14,172 clusters), the same way, and K1 on that
-    primary cast and pair against sweep_plain (every hit and triangle
-    equal);
+    past the 8,192 clusters sweep_spans holds in shared memory (the
+    kernels culled by group boxes, sweep_key_kernel_culled and sweep_runs):
+    8,193 boxes that every ray enters (every tile minimum finite, so every
+    tile takes sweep_runs's runs path), and the primary cast and pair on
+    the scene rebuilt in blocks of 8 (14,172 clusters) and on its sphere
+    at 7 subdivisions in blocks of 16 (327,682 triangles in 29,442
+    clusters: group boxes in two chunks), the same way; the group
+    boxes (sweep_groups) of those two scenes and of 30,741 random boxes
+    (glass5m's count) equal to group_boxes_plain, timed beside their
+    bound; and K1 on the primary cast and pair on blocks of 8 against
+    sweep_plain (every hit and triangle equal);
  4. K2 against its plain version at the schedule path's shapes: the same
     primary batch and the first bounce's bounce cast, with spans / nspan
     from the tracer's real votes; every round's launch is compared, the
@@ -59,8 +64,10 @@ when torch sees no CUDA device, and when anything below fails:
  6. card against CPU: render_radiance at 128x64, 2 spp, 8 bounces, on the
     card (kernel) and on the CPU (plain version), held to the hardware
     lane's image criterion (tests/test_tpu.py:57-60); then the same on
-    phase 3's blocks of 8, where sweep_runs prepares every cast
-    (sweep_spans launched, no plain version called on the card);
+    phase 3's blocks of 8, where the culled kernels prepare every cast
+    (sweep_key_kernel_culled, sweep_runs and one sweep_groups a cast
+    launched, their counts the kernels line's, no plain version called
+    on the card);
  7. the schedule render: the same frame with cast_backend="schedule", one
     warm-up and one timed pass; K2 must be launched, its plain version and
     K1 never; then the schedule image against the sweep image on the card
@@ -186,7 +193,13 @@ other probe kernels have one each (an add of a slice, index_select,
 embedding_bag), timed here and used nowhere in the port. The kernels line
 has one entry per kernel: csrc/probe_gather.cu holds two, the gather
 (probe_gather) and the chained lookups (probe_chained), and csrc/shade.cu
-two, shade_bsdf and shade_nee, which replace no TPU kernel.
+two, shade_bsdf and shade_nee, which replace no TPU kernel; and
+csrc/sweep_prep.cu holds, besides sweep_key and sweep_spans (timed at 484
+clusters, their launches phase 5's), the kernels past 8,192 clusters:
+sweep_key_culled (sweep_key_kernel_culled), sweep_runs (its main case the
+pair on blocks of 8) and sweep_groups (which replaces no TPU kernel; its
+main case the 30,741 random boxes), their launches phase 6's render on
+blocks of 8.
 
 It prints one line of numbers per phase, then a JSON line describing the
 kernels, then {"ok": true, "device": {...}} as the last line. --profile
@@ -222,6 +235,8 @@ RANKS_TIMEOUT_S = 600       # a spawned group that takes longer fails
 PREP_RAYS = 131072          # the preparation kernels' primary cast
 SMALL_T = 8                 # blocks of 8: 14,172 clusters, past the
                             # preparation's shared-memory path
+GROUP_CASE_CLUSTERS = 30741   # glass5m's clusters: random boxes for
+                              # sweep_groups
 PORT = "opengl_ray_tracing_framework_tpu_torch"
 EXPECTED_KERNELS = {"sweep", "sweep_prep", "cluster_intersect", "shade",
                     "probe_copy", "probe_gather", "probe_smem",
@@ -1473,6 +1488,8 @@ def main() -> int:
     # equal, at the main path's shapes, by the probe's own run_case; the
     # SASS instructions per (ray, cluster) pair at the pair
     prep = {"sweep_key": {}, "sweep_spans": {}}
+    # the same kernels' wrappers past SMEM_CLUSTERS, and sweep_groups
+    culled = {"sweep_key_culled": {}, "sweep_runs": {}, "sweep_groups": {}}
     prep_pid = frame_order[:PREP_RAYS]
     prep_o, prep_d = camera.generate_rays(
         ((prep_pid % WIDTH).float() + 0.5) / WIDTH,
@@ -1491,6 +1508,13 @@ def main() -> int:
     if n_small <= sw.SMEM_CLUSTERS:
         fail(f"blocks of {SMALL_T}: {n_small} clusters, not past "
              f"{sw.SMEM_CLUSTERS}")
+    t0 = time.perf_counter()
+    mesh_sc = prep_kernels.mesh_scene(dev)
+    n_mesh = mesh_sc.cl_trifeat.shape[0]
+    print(f"scene: {mesh_sc.n_triangles} triangles in {n_mesh} clusters of "
+          f"{prep_kernels.MESH_T} in {time.perf_counter() - t0:.2f} s")
+    if n_mesh <= 512 * sw.CULL_GROUP:
+        fail(f"{n_mesh} clusters: group boxes in one chunk")
     finite_boxes, finite_rays = prep_kernels.finite_case(dev)
     finite_name = (f"{finite_boxes.cl_aabb_min.shape[0]} clusters, every "
                    "minimum finite")
@@ -1505,18 +1529,33 @@ def main() -> int:
                                  ("pair", merged(captured[0])))),
             (finite_name, finite_boxes, finite_rays),
             (f"primary, T {SMALL_T}", small_scene, prep_primary),
-            (f"pair, T {SMALL_T}", small_scene, merged(captured[0]))):
+            (f"pair, T {SMALL_T}", small_scene, merged(captured[0])),
+            (f"primary, {n_mesh} clusters", mesh_sc, prep_primary),
+            (f"pair, {n_mesh} clusters", mesh_sc, merged(captured[0]))):
         res = prep_kernels.run_case(name, sc, rays, plain=True)
         if res["key_dtype"] != torch.int32:
             fail(f"prep {name}: the key is {res['key_dtype']}, not "
                  "torch.int32")
         if name == finite_name and res["nspan_min"] != res["clusters"]:
             fail(f"prep {name}: a tile minimum is INF")
-        for kname, cases in prep.items():
-            cases[name] = res[kname]
+        if res["clusters"] > sw.SMEM_CLUSTERS:
+            culled["sweep_key_culled"][name] = res["sweep_key"]
+            culled["sweep_runs"][name] = res["sweep_spans"]
+        else:
+            for kname, cases in prep.items():
+                cases[name] = res[kname]
         if name == "pair":
             prep_kernels.sass_report(res["pairs"])
     del finite_boxes, finite_rays
+    for name, sc in ((f"T {SMALL_T}", small_scene),
+                     (f"{n_mesh} clusters", mesh_sc)):
+        culled["sweep_groups"][name] = prep_kernels.groups_case(
+            name, sc.cl_aabb_min, sc.cl_aabb_max, plain=True)
+    group_case = f"random, {GROUP_CASE_CLUSTERS}"
+    culled["sweep_groups"][group_case] = prep_kernels.groups_case(
+        group_case, *prep_kernels.random_boxes(dev, GROUP_CASE_CLUSTERS),
+        plain=True)
+    del mesh_sc
     # K1 on the span lists of those clusters (the primary cast's tiles
     # overlap one cluster each; the pair's walk up to hundreds)
     for name, rays in (("primary", prep_primary),
@@ -1666,6 +1705,7 @@ def main() -> int:
     sw.sweep.launches = 0
     sw.sweep_plain.calls = 0
     sw.sweep_key.launches = sw.sweep_spans.launches = 0
+    sw.group_boxes.launches = 0
     sw.sweep_key_plain.calls = sw.sweep_spans_plain.calls = 0
     ci.cluster_intersect.launches = 0
     ci.cluster_intersect_plain.calls = 0
@@ -1706,6 +1746,9 @@ def main() -> int:
     if prep_plain != (0, 0):
         fail(f"the render called sweep_key_plain / sweep_spans_plain "
              f"{prep_plain} times")
+    if sw.group_boxes.launches:   # 484 clusters: no group boxes
+        fail(f"the render launched sweep_groups {sw.group_boxes.launches} "
+             "times")
     if ci.cluster_intersect.launches or ci.cluster_intersect_plain.calls:
         fail("the sweep render reached the cluster-intersect kernel")
     if args.png:
@@ -1728,14 +1771,19 @@ def main() -> int:
                    f"128x64, 2 spp, {BOUNCES} bounces | card {gpu_s:.2f} s, "
                    f"cpu {cpu_s:.2f} s | ")
     # the same on phase 3's blocks of SMALL_T: every cast of the card's
-    # render prepared by sweep_runs
-    sw.sweep_spans.launches = sw.sweep_key_plain.calls = 0
+    # render prepared by the culled kernels, whose launches the kernels
+    # line reports
+    sw.sweep_key.launches = sw.sweep_spans.launches = 0
+    sw.group_boxes.launches = sw.sweep_key_plain.calls = 0
     sw.sweep_spans_plain.calls = sw.sweep_plain.calls = 0
     t0 = time.perf_counter()
     small_img = ortf.render_radiance(small_scene, cam_small, small, spp=2)
     torch.cuda.synchronize()
     gpu_s = time.perf_counter() - t0
     launched = sw.sweep_spans.launches
+    culled_launches = {"sweep_key_culled": sw.sweep_key.launches,
+                       "sweep_runs": launched,
+                       "sweep_groups": sw.group_boxes.launches}
     plain = (sw.sweep_key_plain.calls + sw.sweep_spans_plain.calls
              + sw.sweep_plain.calls)
     t0 = time.perf_counter()
@@ -1745,11 +1793,15 @@ def main() -> int:
     compare_images(f"parity card vs cpu, {n_small} clusters", small_img,
                    cpu_img,
                    f"128x64, 2 spp, {BOUNCES} bounces | card {gpu_s:.2f} s "
-                   f"(sweep_spans launches {launched}, plain calls {plain}),"
-                   f" cpu {cpu_s:.2f} s | ")
-    if launched <= 0 or plain:
-        fail(f"the render on {n_small} clusters launched sweep_spans "
-             f"{launched} times and called a plain version {plain} times")
+                   f"(sweep_key_kernel_culled / sweep_runs / sweep_groups "
+                   f"launches {culled_launches['sweep_key_culled']} / "
+                   f"{launched} / {culled_launches['sweep_groups']}, plain "
+                   f"calls {plain}), cpu {cpu_s:.2f} s | ")
+    if (min(culled_launches.values()) <= 0 or plain
+            or culled_launches["sweep_groups"] != launched):
+        fail(f"the render on {n_small} clusters launched {culled_launches} "
+             f"and called a plain version {plain} times (one sweep_groups "
+             "a cast)")
 
     # 7. the schedule render
     torch.cuda.synchronize()
@@ -1885,6 +1937,17 @@ def main() -> int:
               "opengl_ray_tracing_framework_tpu/ops/sweep.py:299",
               prep_launches["sweep_spans"], prep["sweep_spans"], "pair",
               source="sweep_prep"),
+        entry("sweep_key_culled",
+              "opengl_ray_tracing_framework_tpu/ops/sweep.py:286",
+              culled_launches["sweep_key_culled"],
+              culled["sweep_key_culled"], f"pair, T {SMALL_T}",
+              source="sweep_prep"),
+        entry("sweep_runs",
+              "opengl_ray_tracing_framework_tpu/ops/sweep.py:299",
+              culled_launches["sweep_runs"], culled["sweep_runs"],
+              f"pair, T {SMALL_T}", source="sweep_prep"),
+        entry("sweep_groups", None, culled_launches["sweep_groups"],
+              culled["sweep_groups"], group_case, source="sweep_prep"),
         entry("cluster_intersect",
               "opengl_ray_tracing_framework_tpu/ops/intersect_pallas.py:66",
               k2_launches, k2, k2_main),

@@ -9,7 +9,10 @@ the forward render (the primary cast and each bounce's merged NEE-shadow
     1. slab test of every ray against every cluster AABB (cluster_tnear),
        consumed only through per-ray and per-tile reductions, so the
        (rays, clusters) matrix never exists whole (the plain versions take
-       it in chunks of rays);
+       it in chunks of rays); past SMEM_CLUSTERS clusters the kernels
+       test a cluster only for rays that enter its group box (group_boxes:
+       CULL_GROUP consecutive clusters, a BVH neighbourhood), which gives
+       the same values;
     2. a stable coherence sort of the rays (sweep_key, then torch.sort):
        rays that trace nothing (masked off, or overlapping no cluster) go
        last, live rays group by (nearest candidate cluster, quantized
@@ -58,6 +61,8 @@ SMEM_CLUSTERS = 8192  # most clusters whose tile minima and keys
                       # sweep_spans holds in shared memory (more take
                       # sorted runs in global scratch);
                       # csrc/sweep_prep.cu agrees
+CULL_GROUP = 32       # consecutive clusters a group box covers past
+                      # SMEM_CLUSTERS; csrc/sweep_prep.cu agrees
 _DEAD_KEY = 1 << 30   # sort key for rays that trace nothing
 _SLAB_CHUNK = 128 * TILE_R   # rays per slab-test chunk
 
@@ -353,25 +358,41 @@ def sweep_spans_plain(origin, direction, mask, anyhit, perm, cl_min,
 sweep_spans_plain.calls = 0
 
 
+def group_boxes_plain(cl_min, cl_max):
+    """Plain PyTorch version of csrc/sweep_prep.cu's sweep_groups: (2, G,
+    3) f32, G = ceil(C / CULL_GROUP), the elementwise min of cl_min and max
+    of cl_max over each run of CULL_GROUP consecutive clusters (the last
+    run may be shorter)."""
+    pad = (-cl_min.shape[0]) % CULL_GROUP
+    lo = torch.cat([cl_min, cl_min.new_full((pad, 3), math.inf)])
+    hi = torch.cat([cl_max, cl_max.new_full((pad, 3), -math.inf)])
+    return torch.stack([lo.reshape(-1, CULL_GROUP, 3).amin(dim=1),
+                        hi.reshape(-1, CULL_GROUP, 3).amax(dim=1)])
+
+
 def _declare_prep(lib):
     """Declare the C signatures of a loaded csrc/sweep_prep.cu."""
-    lib.sweep_prep_tile_rays.argtypes = []
-    lib.sweep_prep_tile_rays.restype = ctypes.c_int
-    lib.sweep_prep_smem_clusters.argtypes = []
-    lib.sweep_prep_smem_clusters.restype = ctypes.c_int
-    lib.sweep_key_launch.argtypes = ([ctypes.c_void_p] * 6
-                                     + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+    for name in ("sweep_prep_tile_rays", "sweep_prep_smem_clusters",
+                 "sweep_prep_group"):
+        getattr(lib, name).argtypes = []
+        getattr(lib, name).restype = ctypes.c_int
+    lib.sweep_groups_launch.argtypes = ([ctypes.c_void_p] * 3
+                                        + [ctypes.c_int, ctypes.c_void_p])
+    lib.sweep_groups_launch.restype = ctypes.c_int
+    lib.sweep_key_launch.argtypes = ([ctypes.c_void_p] * 7
+                                     + [ctypes.c_int] * 2
+                                     + [ctypes.c_void_p] * 2)
     lib.sweep_key_launch.restype = ctypes.c_int
-    lib.sweep_spans_launch.argtypes = ([ctypes.c_void_p] * 13
+    lib.sweep_spans_launch.argtypes = ([ctypes.c_void_p] * 14
                                        + [ctypes.c_int] * 2
-                                       + [ctypes.c_void_p] * 2)
+                                       + [ctypes.c_void_p] * 3)
     lib.sweep_spans_launch.restype = ctypes.c_int
-    if lib.sweep_prep_tile_rays() != TILE_R:
-        raise RuntimeError(
-            "csrc/sweep_prep.cu TILE_R differs from ops/sweep.py")
-    if lib.sweep_prep_smem_clusters() != SMEM_CLUSTERS:
-        raise RuntimeError(
-            "csrc/sweep_prep.cu SMEM_CLUSTERS differs from ops/sweep.py")
+    for name, want in (("tile_rays", TILE_R),
+                       ("smem_clusters", SMEM_CLUSTERS),
+                       ("group", CULL_GROUP)):
+        if getattr(lib, f"sweep_prep_{name}")() != want:
+            raise RuntimeError(f"csrc/sweep_prep.cu {name.upper()} differs "
+                               "from ops/sweep.py")
     return lib
 
 
@@ -407,12 +428,55 @@ def _prep_device(fn, origin, cl_min):
     return dev
 
 
-def sweep_key(origin, direction, mask, cl_min, cl_max):
+def group_boxes(cl_min, cl_max):
+    """The group boxes of the clusters (group_boxes_plain's (2, G, 3)
+    values): csrc/sweep_prep.cu's sweep_groups on a CUDA tensor,
+    group_boxes_plain on a CPU tensor. `group_boxes.launches` counts kernel
+    launches."""
+    dev = _prep_device("group_boxes", cl_min, cl_min)
+    if dev.type == "cpu":
+        return group_boxes_plain(cl_min, cl_max)
+    c = cl_min.shape[0]
+    _check_prep("group_boxes", dev, (
+        ("cl_min", cl_min, torch.float32, (c, 3)),
+        ("cl_max", cl_max, torch.float32, (c, 3))))
+    out = torch.empty((2, -(-c // CULL_GROUP), 3), dtype=torch.float32,
+                      device=dev)
+    lib = nvcc.load("sweep_prep")
+    _launch_prep("group_boxes", dev, lambda stream: lib.sweep_groups_launch(
+        cl_min.data_ptr(), cl_max.data_ptr(), out.data_ptr(), c, stream))
+    group_boxes.launches += 1
+    return out
+
+
+group_boxes.launches = 0
+
+
+def _culled_groups(fn, dev, cl_min, cl_max, groups=None):
+    """The group boxes a preparation kernel takes past SMEM_CLUSTERS
+    clusters (`groups`, checked, when the caller has them; else
+    group_boxes), else None (the kernels below it test every pair)."""
+    c = cl_min.shape[0]
+    if c <= SMEM_CLUSTERS:
+        return None
+    if groups is None:
+        return group_boxes(cl_min, cl_max)
+    _check_prep(fn, dev, (("groups", groups, torch.float32,
+                           (2, -(-c // CULL_GROUP), 3)),))
+    return groups
+
+
+def sweep_key(origin, direction, mask, cl_min, cl_max, groups=None):
     """The coherence key of each ray: csrc/sweep_prep.cu's sweep_key on a
-    CUDA tensor (any cluster count: it stages the boxes in chunks),
+    CUDA tensor (any cluster count: it stages the boxes in chunks; past
+    SMEM_CLUSTERS sweep_key_kernel_culled, after group_boxes),
     sweep_key_plain on a CPU tensor; the same (R,) int32 values, which
     hold nearest * 128 + 127 for up to 2^24 clusters, as JAX's _sort_key.
-    `sweep_key.launches` counts kernel launches."""
+    `groups`: group_boxes(cl_min, cl_max) where the caller has them (one
+    cast's two kernels share them), else made here past SMEM_CLUSTERS.
+    `sweep_key.launches` counts key kernel launches. While
+    utils/timing.py's tracing is on, the culled kernel adds its member
+    slab tests to the device counter k1a_pairs_tested."""
     dev = _prep_device("sweep_key", origin, cl_min)
     if dev.type == "cpu":
         return sweep_key_plain(origin, direction, mask, cl_min, cl_max)
@@ -423,11 +487,14 @@ def sweep_key(origin, direction, mask, cl_min, cl_max):
         ("mask", mask, torch.bool, (r,)),
         ("cl_min", cl_min, torch.float32, (c, 3)),
         ("cl_max", cl_max, torch.float32, (c, 3))))
+    groups = _culled_groups("sweep_key", dev, cl_min, cl_max, groups)
     key = torch.empty(r, dtype=torch.int32, device=dev)
     lib = nvcc.load("sweep_prep")
     _launch_prep("sweep_key", dev, lambda stream: lib.sweep_key_launch(
         origin.data_ptr(), direction.data_ptr(), mask.data_ptr(),
-        cl_min.data_ptr(), cl_max.data_ptr(), key.data_ptr(), r, c, stream))
+        cl_min.data_ptr(), cl_max.data_ptr(),
+        None if groups is None else groups.data_ptr(), key.data_ptr(), r, c,
+        timing.device_counter("k1a_pairs_tested", dev), stream))
     sweep_key.launches += 1
     return key
 
@@ -435,15 +502,20 @@ def sweep_key(origin, direction, mask, cl_min, cl_max):
 sweep_key.launches = 0
 
 
-def sweep_spans(origin, direction, mask, anyhit, perm, cl_min, cl_max):
+def sweep_spans(origin, direction, mask, anyhit, perm, cl_min, cl_max,
+                groups=None):
     """Span lists, ray features and records of rays in kernel order:
     csrc/sweep_prep.cu on a CUDA tensor (sweep_spans for up to
     SMEM_CLUSTERS clusters, its tile minima in shared memory; sweep_runs
-    above, through sorted runs in a (G, C) 64-bit scratch allocated here),
-    sweep_spans_plain on a CPU tensor; same contract and values.
-    `sweep_spans.launches` counts kernel launches. While utils/timing.py's
-    tracing is on, either kernel adds the rays that are masked on and
-    enter some cluster to the device counter cast_live_rays."""
+    above, with the group boxes as sweep_key takes them: the members of
+    entered group boxes, and a tile whose entered groups outgrow shared
+    memory through sorted runs in a (G, C) 64-bit scratch allocated here
+    for every such cast), sweep_spans_plain on a CPU tensor; same contract
+    and values. `sweep_spans.launches` counts these
+    kernels' launches. While utils/timing.py's tracing is on, either
+    kernel adds the rays that are masked on and enter some cluster to the
+    device counter cast_live_rays, and sweep_runs its member slab tests to
+    k1a_pairs_tested."""
     dev = _prep_device("sweep_spans", origin, cl_min)
     if dev.type == "cpu":
         return sweep_spans_plain(origin, direction, mask, anyhit, perm,
@@ -466,17 +538,20 @@ def sweep_spans(origin, direction, mask, anyhit, perm, cl_min, cl_max):
     tile_sorted = torch.empty((g, c), dtype=torch.float32, device=dev)
     rayfeat = torch.empty((r, N_FEAT), dtype=torch.float32, device=dev)
     best = torch.empty((r, BEST_W), dtype=torch.float32, device=dev)
-    # sweep_runs's sorted runs, uint64 keys held as int64
+    groups = _culled_groups("sweep_spans", dev, cl_min, cl_max, groups)
+    # the sorted runs of sweep_runs's runs path, uint64 keys held as int64
     runs = (torch.empty((g, c), dtype=torch.int64, device=dev)
-            if c > SMEM_CLUSTERS else None)
+            if groups is not None else None)
     lib = nvcc.load("sweep_prep")
     _launch_prep("sweep_spans", dev, lambda stream: lib.sweep_spans_launch(
         origin.data_ptr(), direction.data_ptr(), mask.data_ptr(),
         anyhit.data_ptr(), None if perm is None else perm.data_ptr(),
-        cl_min.data_ptr(), cl_max.data_ptr(), nspan.data_ptr(),
+        cl_min.data_ptr(), cl_max.data_ptr(),
+        None if groups is None else groups.data_ptr(), nspan.data_ptr(),
         spans.data_ptr(), tile_sorted.data_ptr(), rayfeat.data_ptr(),
         best.data_ptr(), None if runs is None else runs.data_ptr(), g, c,
-        timing.device_counter("cast_live_rays", dev), stream))
+        timing.device_counter("cast_live_rays", dev),
+        timing.device_counter("k1a_pairs_tested", dev), stream))
     sweep_spans.launches += 1
     return nspan, spans, tile_sorted, rayfeat, best
 
@@ -536,7 +611,8 @@ def sweep_inputs(scene, origin, direction, mask, anyhit):
     spans, tile_sorted, rayfeat, best, trifeat) for rays padded to a
     multiple of TILE_R, and the sort permutation (None when the rays fit
     one tile) that put them in kernel order. On a CUDA tensor two kernels
-    and one torch.sort; on a CPU tensor their plain versions. A span
+    and one torch.sort (past SMEM_CLUSTERS after group_boxes, once for
+    both); on a CPU tensor their plain versions. A span
     rt.cast.prep; the padded R goes to the counter cast_lanes, R x C (the
     ray x cluster slab tests each preparation kernel makes) to
     cast_pairs, and a cast past SMEM_CLUSTERS clusters (sweep_runs) adds
@@ -551,12 +627,15 @@ def sweep_inputs(scene, origin, direction, mask, anyhit):
         timing.count("cast_pairs", r * c)
         timing.count("cast_runs", int(c > SMEM_CLUSTERS))
 
+        # past SMEM_CLUSTERS both kernels take the same group boxes
+        groups = (_culled_groups("sweep_inputs", cl_min.device, cl_min,
+                                 cl_max) if cl_min.is_cuda else None)
         perm = None
         if r > TILE_R:
-            key = sweep_key(origin, direction, mask, cl_min, cl_max)
+            key = sweep_key(origin, direction, mask, cl_min, cl_max, groups)
             perm = torch.sort(key, stable=True).indices
         args = sweep_spans(origin, direction, mask, anyhit, perm, cl_min,
-                           cl_max)
+                           cl_max, groups)
         return (*args, scene.cl_trifeat.contiguous()), perm
 
 

@@ -25,16 +25,24 @@ rays a batch) under torch.profiler after a warm pass: each kernel's device
 time and launches over the pass, beside the device's time in all kernels.
 
 With --past-smem it times the path for more clusters than sweep_spans
-holds in shared memory (sweep_runs): run_case on the same scene in blocks
-of 8 (14,172 clusters; the primary cast and the pair) and on 8,193 boxes
-that every ray enters (every tile minimum finite: each tile sorts and
-merges all of them); the peak device memory of one cast (sweep_inputs and
+holds in shared memory (the culled kernels sweep_key_kernel_culled and
+sweep_runs, after the group boxes): run_case on the same scene in blocks
+of 8 (14,172 clusters) and on mesh_scene (29,442 clusters: group boxes in
+two chunks), the primary cast and the pair, and on 8,193 boxes
+that every ray enters (every tile minimum finite: each tile takes
+sweep_runs's dense path, which sorts and merges all of them), each
+kernel's time beside its bound at the dense pair count and the member
+pairs both kernels test against 2 x cast_pairs (the device counter
+k1a_pairs_tested); the peak device memory of one cast (sweep_inputs and
 K1) on 484 and on 14,172 clusters; and one render_pass of the bench's
 frame (1024x512, 8 bounces, 1 spp, 131,072 rays a batch) with the sweep
-tracer on each of the two, after a warm pass, fenced by a host copy.
+tracer on each of the two, after a warm pass, fenced by a host copy; and
+the group boxes (sweep_groups) of the 14,172 clusters and of 30,741
+random boxes, held to group_boxes_plain and timed beside their bound.
 
 It uses only entry points every tree of the port has had since the
-preparation kernels came, so a copy of it runs in an older tree; two trees
+preparation kernels came (the counter where the tree has it), so a copy of
+it runs in an older tree; two trees
 are compared only inside one call on one card, in turns (parent, change,
 change, parent). It prints a line per case and one JSON line last.
 """
@@ -59,6 +67,9 @@ PAIR_BATCH = 65536       # primary rays whose first bounce makes the pair
 DEEP_BOUNCE = 5          # the deep pair: the merged cast of bounce 4
 WIDE_T = (512, 1024)
 SMALL_T = 8              # blocks of 8: 14,172 clusters, past shared memory
+MESH_SUBDIV, MESH_T = 7, 16   # 327,682 triangles in blocks of 16: 29,442
+                              # clusters, group boxes in two chunks of 512
+GLASS5M_CLUSTERS = 30741   # glass5m's clusters: group boxes in two chunks
 BENCH_TILE = 131072      # the bench's rays a batch
 PASS_BOUNCES = 8         # pass_profile's frame: chip_smoke.py's
 ALU_PER_CLOCK, FMA_PER_CLOCK, ISSUE_PER_CLOCK = 64, 128, 128   # per SM
@@ -130,14 +141,25 @@ def casts(device, blocks=WIDE_T):
     return out
 
 
+def mesh_scene(device):
+    """The glass scene's sphere at MESH_SUBDIV subdivisions (327,682
+    triangles) in blocks of MESH_T: past 16,384 clusters, so the culled
+    kernels stage their group boxes in two chunks, as on glass5m."""
+    from .. import build_test_scene
+
+    host, _ = build_test_scene(MESH_SUBDIV, device="cpu")
+    return host.build(cluster_size=MESH_T, device=device)
+
+
 def run_case(name, scene, rays, plain=False):
     """Hold sweep_key and sweep_spans to their plain versions on every
     output of one cast (padded as sweep_inputs pads it; RuntimeError if
     any differs), time each and print the case's line. Returns {"rays",
     "live", "clusters", "tiles", "pairs", "key_dtype", "nspan_min",
-    "nspan_max", "sort_ms", "sweep_key": ..., "sweep_spans": ...}, each kernel's entry {"ms",
-    "bound", "err"} (err 0.0: every output equal) and, with `plain`, the
-    plain version's "plain_ms"."""
+    "nspan_max", "sort_ms", "tested" (pairs_tested), "sweep_key": ...,
+    "sweep_spans": ...}, each kernel's entry {"ms", "bound", "err"} (err
+    0.0: every output equal) and, with `plain`, the plain version's
+    "plain_ms"."""
     o, d, m, a = sw.pad_cast(*rays)
     lo, hi = scene.cl_aabb_min, scene.cl_aabb_max
     args = (o, d, m, a, lo, hi)
@@ -161,24 +183,90 @@ def run_case(name, scene, rays, plain=False):
     out = dict(rays=r, live=live, clusters=c, tiles=r // sw.TILE_R,
                pairs=live * c, key_dtype=key.dtype,
                nspan_min=int(want[1].min()), nspan_max=int(want[1].max()),
-               sort_ms=cuda_ms(lambda: torch.sort(key, stable=True)))
+               sort_ms=cuda_ms(lambda: torch.sort(key, stable=True)),
+               tested=pairs_tested(args, perm))
     parts = []
     for kname, bound in zip(calls, bounds(args)[:2]):
         kernel, plain_fn = calls[kname]
         entry = dict(ms=graph_ms(kernel), bound=bound, err=0.0)
+        # a culled kernel skips most pairs: its time can fall below the
+        # bound of testing them all
+        which = "its bound" if out["tested"] is None else "the dense bound"
         text = (f"{kname} {entry['ms']:.4f} ms ({bound[0] / entry['ms']:.1%}"
-                f" of its bound {bound[0]:.4f} ms by {bound[1]})")
+                f" of {which} {bound[0]:.4f} ms by {bound[1]})")
         if plain:
             entry["plain_ms"] = cuda_ms(plain_fn, repeats=2)
             text += f", plain {entry['plain_ms']:.3f} ms"
         out[kname] = entry
         parts.append(text)
+    tested = ""
+    if out["tested"] is not None:
+        tested = (f" | member pairs tested {out['tested']} of 2 x "
+                  f"{r * c} cast_pairs ({out['tested'] / (2 * r * c):.4f})")
     print(f"prep {name}: {r} rays ({live} live), {c} clusters, "
           f"{out['tiles']} tiles, spans/tile mean "
-          f"{want[1].float().mean().item():.1f} | every output equal | "
-          + " | ".join(parts) + f" | torch.sort of the {key.dtype} keys "
-          f"{out['sort_ms']:.4f} ms")
+          f"{want[1].float().mean().item():.1f} max {out['nspan_max']} | "
+          "every output equal | " + " | ".join(parts)
+          + f" | torch.sort of the {key.dtype} keys "
+          f"{out['sort_ms']:.4f} ms" + tested)
     return out
+
+
+def random_boxes(device, c, seed=0):
+    """c random cluster boxes (cl_min, cl_max) on the card, with -0.0 and
+    zero-thick coordinates among them."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    lo = torch.rand((c, 3), generator=gen, device=device) * 10 - 5
+    lo = torch.where(torch.rand((c, 3), generator=gen, device=device) < 0.05,
+                     torch.tensor(-0.0, device=device), lo)
+    size = torch.rand((c, 3), generator=gen, device=device) * 2
+    flat = torch.rand((c, 3), generator=gen, device=device) < 0.1
+    return lo, lo + torch.where(flat, torch.zeros_like(size), size)
+
+
+def groups_case(name, lo, hi, plain=False):
+    """Hold group_boxes (csrc/sweep_prep.cu's sweep_groups) to
+    group_boxes_plain on the boxes lo / hi (torch.equal; RuntimeError if
+    they differ), time it by CUDA-graph replays beside its bound (each box
+    read once, each group box written once) and print the case's line.
+    Returns {"clusters", "groups", "ms", "bound", "err"} and, with `plain`,
+    "plain_ms"; None in a tree without group boxes."""
+    if not hasattr(sw, "group_boxes"):
+        return None
+    got, want = sw.group_boxes(lo, hi), sw.group_boxes_plain(lo, hi)
+    torch.cuda.synchronize()
+    if got.shape != want.shape or not torch.equal(got, want):
+        raise RuntimeError(f"prep groups {name}: the group boxes differ from "
+                           "the plain version")
+    c, g = lo.shape[0], want.shape[1]
+    bound = prep_bound(0, (c + g) * 24)
+    out = dict(clusters=c, groups=g, bound=bound, err=0.0,
+               ms=graph_ms(lambda: sw.group_boxes(lo, hi)))
+    text = (f"prep groups {name}: {c} clusters, {g} group boxes, equal | "
+            f"sweep_groups {out['ms']:.4f} ms ({bound[0] / out['ms']:.1%} of "
+            f"its bound {bound[0]:.4f} ms by {bound[1]})")
+    if plain:
+        out["plain_ms"] = cuda_ms(lambda: sw.group_boxes_plain(lo, hi),
+                                  repeats=5)
+        text += f", plain {out['plain_ms']:.3f} ms"
+    print(text)
+    return out
+
+
+def pairs_tested(args, perm):
+    """The member slab tests both kernels make on one cast past
+    SMEM_CLUSTERS clusters (the device counter k1a_pairs_tested under
+    tracing()), or None below it and in a tree without the counter."""
+    from ..utils import timing
+
+    o, d, m, a, lo, hi = args
+    if (lo.shape[0] <= getattr(sw, "SMEM_CLUSTERS", lo.shape[0]) or
+            "k1a_pairs_tested" not in getattr(timing, "DEVICE_COUNTERS", ())):
+        return None
+    with timing.tracing(o.device) as rec:
+        sw.sweep_key(o, d, m, lo, hi)
+        sw.sweep_spans(o, d, m, a, perm, lo, hi)
+    return rec.counters["k1a_pairs_tested"]
 
 
 def bounds(args):
@@ -236,7 +324,11 @@ def parse_sass(text: str) -> dict:
     out = {}
     for part in re.split(r"\n\s*Function : ", text)[1:]:
         fname = part.split(None, 1)[0]
-        kernel = next((k for k in KERNELS if k in fname), None)
+        # the name whole (mangled: its length before it, E after it), not
+        # inside a longer one (sweep_key_kernel_culled)
+        kernel = next((k for k in KERNELS
+                       if f"{len(k)}{k}E" in fname or f"{k}(" in fname),
+                      None)
         if kernel is None:
             continue
         instrs, labels, pending = [], {}, []
@@ -409,11 +501,13 @@ def bench_pass(scene, device):
 
 def past_smem(device):
     """The --past-smem cases: run_case (with the plain version's time) on
-    finite_case and on the 14,172-cluster casts, every tile minimum of
-    finite_case checked finite; cast_peak_gib of the primary cast and
-    bench_pass on 484 and 14,172 clusters. Prints a line a case; returns
-    the results."""
-    result = {"cases": {}, "cast_peak_gib": {}, "bench_pass": {}}
+    finite_case and on the casts on blocks of 8 and on mesh_scene, every
+    tile minimum of finite_case checked finite; groups_case on the 14,172 clusters and
+    on random boxes at glass5m's count; cast_peak_gib of the primary cast
+    and bench_pass on 484 and 14,172 clusters. Prints a line a case;
+    returns the results."""
+    result = {"cases": {}, "cast_peak_gib": {}, "bench_pass": {},
+              "groups": {}}
     boxes, rays = finite_case(device)
     name = f"{boxes.cl_aabb_min.shape[0]} clusters, every minimum finite"
     res = run_case(name, boxes, rays, plain=True)
@@ -423,6 +517,17 @@ def past_smem(device):
     cases = casts(device, blocks=(SMALL_T,))
     for name in (f"primary, T {SMALL_T}", f"pair, T {SMALL_T}"):
         result["cases"][name] = run_case(name, *cases[name], plain=True)
+    mesh = mesh_scene(device)
+    for cast in ("primary", "pair"):
+        name = f"{cast}, {mesh.cl_aabb_min.shape[0]} clusters"
+        result["cases"][name] = run_case(name, mesh, cases[cast][1],
+                                         plain=True)
+    small = cases[f"primary, T {SMALL_T}"][0]
+    for name, (lo, hi) in (
+            (f"T {SMALL_T}", (small.cl_aabb_min, small.cl_aabb_max)),
+            (f"random, {GLASS5M_CLUSTERS}",
+             random_boxes(device, GLASS5M_CLUSTERS))):
+        result["groups"][name] = groups_case(name, lo, hi, plain=True)
     for scene, rays in (cases["primary"], cases[f"primary, T {SMALL_T}"]):
         label = f"{scene.cl_aabb_min.shape[0]} clusters"
         peak = result["cast_peak_gib"][label] = cast_peak_gib(scene, rays)

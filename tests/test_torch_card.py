@@ -8,11 +8,15 @@ a block wider than the kernels' 4,096; K1's preparation kernels
 (csrc/sweep_prep.cu: sweep_key, sweep_spans) against sweep_key_plain and
 sweep_spans_plain on every output, on the 81,922-triangle scene in
 blocks of 256, 512, 1,024, 128 and 8 (C = 484, 243, 121, one over a
-chunk of 512 boxes, and 14,172), at C = SMEM_CLUSTERS (the last count
+chunk of 512 boxes, and 14,172), on its sphere at 7 subdivisions in
+blocks of 16 (29,442: group boxes in two chunks of 512), at
+C = SMEM_CLUSTERS (the last count
 sweep_spans holds in shared memory) and above it (sweep_runs: sorted runs
 in global scratch, merged by rank) at one more, every tile minimum
-finite, and at 3 * SMEM_CLUSTERS + 5, and the whole merged cast on the
-14,172 clusters against the plain versions;
+finite, and at 3 * SMEM_CLUSTERS + 5, the cases aimed at the group-box
+cull past it (_prep_culled), and the whole merged cast on the 14,172
+clusters against the plain versions; the group boxes (sweep_groups)
+against group_boxes_plain;
 the chained lookups (K4c-2,
 csrc/probe_gather.cu) on tables whose columns differ and the block sums
 (K4c-3, csrc/probe_stream.cu) for one and many rows of starts, and the
@@ -45,7 +49,7 @@ from opengl_ray_tracing_framework_tpu_torch.ops import (
     cluster_intersect as tci)
 from opengl_ray_tracing_framework_tpu_torch.ops import sweep as tsweep
 from opengl_ray_tracing_framework_tpu_torch.probes import (
-    card_perf, gather, launch_overhead, row_balance)
+    card_perf, gather, launch_overhead, prep_kernels, row_balance)
 from opengl_ray_tracing_framework_tpu_torch.render import _trace_rows
 from opengl_ray_tracing_framework_tpu_torch.utils import timing
 from opengl_ray_tracing_framework_tpu_torch.utils.config import RenderConfig
@@ -184,9 +188,14 @@ def test_blocks_beyond_the_limit_are_refused():
 
 
 PREP_BLOCKS = [256, 512, 1024, 128, 8]
+PREP_MESH = "29,442 clusters"   # prep_kernels.mesh_scene: two chunks
 PREP_SYNTHETIC = ["masked warps", "one live ray", "all dead", "one cluster",
                   "45 clusters", "ties", "max clusters",
                   "past the shared memory", "many runs"]
+PREP_CULLED = ["culled: inside a group", "culled: grazing",
+               "culled: axis rays", "culled: flat boxes",
+               "culled: ties across groups", "culled: some tiles fall back",
+               "culled: three chunks"]
 SMALL_BLOCK_CLUSTERS = 14172   # the 81,922 triangles in blocks of 8
 
 
@@ -269,15 +278,141 @@ def _prep_synthetic(case, dev):
                                               t(anyhit)))]
 
 
+def _prep_culled(case, dev):
+    """Boxes (cl_min, cl_max) and 8,192 rays (64 tiles) of a case aimed at
+    the group-box cull past SMEM_CLUSTERS, at C = SMEM_CLUSTERS + 37 (no
+    multiple of CULL_GROUP: the last group holds 5), or at 2 x 16,384 + 37
+    (three chunks of 512 group boxes, the last of two). Group g's members are
+    cubes of half-size 0.05 about points on the surface of the cube of
+    half-size 0.5 about lattice point g, so the group box has an empty
+    middle: rays from inside group boxes but outside all their members;
+    rays on a group box's faces, edges and corners, along and across them;
+    axis-parallel directions whose other components are +-0.0 or below the
+    1e-12 clamp; zero-thick y slabs (members, and whole groups, flat in
+    y); members copied into a group three later, so an earlier and a later
+    group tie exactly (and rays start inside both copies); unit cubes
+    along the diagonal (three chunks) where a tile's rays enter group
+    boxes of 3,616 members (within the culled pass's KEYS_CAP = 4,096),
+    of 1,024 members in the first chunk and 4,160 in the second (the runs
+    path, taken after the first chunk's tests), of every cube (the runs
+    path from the first chunk) or none; and tiles of rays from inside one
+    group box (three chunks), in a narrow cone (a few group boxes, any
+    chunk) or in any direction (more members than KEYS_CAP, few of them
+    entered). Every case masks warp 2 of each tile and all of tile 3 (and
+    15% of the rest)."""
+    rng = np.random.default_rng(PREP_CULLED.index(case) + 29)
+    group, n = tsweep.CULL_GROUP, 8192
+    c = (2 * 512 * group + 37 if case in ("culled: some tiles fall back",
+                                          "culled: three chunks")
+         else tsweep.SMEM_CLUSTERS + 37)
+    k = np.arange(c)
+    g = k // group
+    centre = (np.stack([g % 7, (g // 7) % 7, g // 49], 1) * 2.0 - 6.0
+              ).astype(np.float32)
+    p = rng.uniform(-1, 1, (c, 3))
+    on = rng.integers(0, 3, c)
+    p[k, on] = np.where(p[k, on] < 0, -1.0, 1.0)   # on the cube's surface
+    mid = (centre + 0.5 * p).astype(np.float32)
+    lo, hi = mid - np.float32(0.05), mid + np.float32(0.05)
+    i = np.arange(n)
+    tile, lane = i // tsweep.TILE_R, i % tsweep.TILE_R
+    keep_live = np.zeros(n, bool)
+    o = rng.normal(0, 4.0, (n, 3)).astype(np.float32)
+    d = rng.normal(0, 1.0, (n, 3)).astype(np.float32)
+    pick = rng.integers(0, c // group, n)            # a group a ray
+    gpick = pick[:, None] * group + np.arange(group)
+    g_lo, g_hi = lo[gpick].min(axis=1), hi[gpick].max(axis=1)
+    if case == "culled: inside a group":
+        o[::2] = (centre[pick * group]
+                  + rng.uniform(-0.3, 0.3, (n, 3)))[::2]
+    elif case == "culled: grazing":
+        # corners, edges and faces of group boxes, exact in float32
+        side = rng.random((n, 3)) < 0.5
+        o = np.where(side, g_lo, g_hi)
+        free = rng.integers(0, 3, n)
+        inside = rng.uniform(g_lo, g_hi).astype(np.float32)
+        o[i % 3 == 1, free[i % 3 == 1]] = inside[i % 3 == 1,
+                                                 free[i % 3 == 1]]
+        face = i % 3 == 2
+        keep = rng.integers(0, 3, n)
+        o[face] = inside[face]
+        o[face, keep[face]] = np.where(side, g_lo, g_hi)[face, keep[face]]
+        # along the face (a zero component) or across it
+        d[i % 2 == 0, keep[i % 2 == 0]] = np.where(
+            rng.random((i % 2 == 0).sum()) < 0.5, 0.0, -0.0)
+        corner = i % 12 == 0
+        d[corner] = np.where(side[corner], 1.0, -1.0)
+    elif case == "culled: axis rays":
+        o = np.where(rng.random((n, 3)) < 0.5, lo[pick * group + 3],
+                     rng.uniform(-7, 7, (n, 3))).astype(np.float32)
+        axis = rng.integers(0, 3, n)
+        special = np.float32([0.0, -0.0, 1e-13, -1e-13, 0.0, -0.0])
+        d = special[rng.integers(0, len(special), (n, 3))]
+        d[i, axis] = np.where(rng.random(n) < 0.5, 1.0, -1.0)
+    elif case == "culled: flat boxes":
+        flat = g % 2 == 0                             # whole groups flat
+        lo[flat, 1] = hi[flat, 1] = centre[flat, 1]
+        lo[~flat, 1] = hi[~flat, 1]                   # flat members
+        o[::3, 1] = centre[pick * group, 1][::3]      # in a flat plane
+        d[::3, 1] = np.where(i[::3] % 2 == 0, 0.0, -0.0)
+    elif case == "culled: ties across groups":
+        copy = (g % 5 == 0) & (g + 3 < c // group)
+        lo[k[copy] + 3 * group], hi[k[copy] + 3 * group] = lo[copy], hi[copy]
+        start = i % 4 == 0                            # inside a copied box
+        src = rng.choice(k[copy], n)
+        o[start] = ((lo[src] + hi[src]) / 2)[start]
+    elif case == "culled: some tiles fall back":
+        lo = (k.astype(np.float32)[:, None] * np.float32(1e-3)
+              + np.zeros((1, 3), np.float32))
+        hi = lo + 1
+        o[:] = -5.0
+        d[:] = -1.0                                   # away from every cube
+        # rays along x at y = z = s enter the ~1,001 cubes k of s - 1 <=
+        # k / 1,000 <= s: tiles 2 mod 4 the group boxes of 3,616 members,
+        # 0 mod 4 1,024 in the first chunk and 4,160 in the second; tiles
+        # 1 mod 4 every cube (one ray along the diagonal)
+        for t_mod, s in ((2, np.float32([2.0, 4.0, 6.0, 0.5])),
+                         (0, np.float32([2.0, 18.0, 20.0, 22.0, 24.0]))):
+            rows = (tile % 4 == t_mod) & (lane % 8 < len(s))
+            at = s[lane[rows] % 8]
+            o[rows] = np.stack([np.full(rows.sum(), -1.0, np.float32), at,
+                                at], 1)
+            d[rows] = np.float32([1.0, 0.0, 0.0])
+            keep_live |= rows
+        diag = (tile % 4 == 1) & (lane == 5)
+        o[diag] = -1.0
+        d[diag] = np.float32(1 / np.sqrt(3))
+        keep_live |= diag
+    elif case == "culled: three chunks":
+        near = rng.integers(0, -(-c // group), n // tsweep.TILE_R)[tile]
+        o = (centre[near * group]
+             + rng.uniform(-0.3, 0.3, (n, 3))).astype(np.float32)
+        axis = rng.normal(0, 1.0, (n // tsweep.TILE_R, 3))[tile]
+        d = np.where((tile % 2 == 0)[:, None],
+                     axis + rng.normal(0, 0.1, (n, 3)),
+                     rng.normal(0, 1.0, (n, 3))).astype(np.float32)
+    nz = np.linalg.norm(d, axis=1, keepdims=True)
+    d = np.where(nz > 0.5, d / np.maximum(nz, 1e-30), d).astype(np.float32)
+    mask = (((rng.random(n) >= 0.15) | keep_live) & (lane // 32 != 2)
+            & (tile != 3))
+    anyhit = rng.random(n) < 0.4
+    t = lambda x: torch.tensor(np.ascontiguousarray(x), device=dev)
+    return t(lo), t(hi), [(n, tsweep.pad_cast(t(o), t(d), t(mask),
+                                              t(anyhit)))]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", PREP_BLOCKS + PREP_SYNTHETIC)
+@pytest.mark.parametrize("case", PREP_BLOCKS + [PREP_MESH] + PREP_SYNTHETIC
+                         + PREP_CULLED)
 def test_prep_kernels_equal_plain(case, loong_scale_scene):
     """sweep_key and sweep_spans equal their plain versions on every
     output (torch.equal: the same values, -0.0 equal to +0.0; the key
-    int32), on the main path's scene cut into blocks of 256, 512, 1,024
-    and 128 and on the synthetic cases of _prep_synthetic (each also with
-    the rays in their own order, so its tiles stay as built), and
-    sweep_inputs on the card launches both and calls neither plain
+    int32), on the main path's scene cut into blocks of 256, 512, 1,024,
+    128 and 8, on prep_kernels.mesh_scene (29,442 clusters) and on the
+    synthetic cases of _prep_synthetic and
+    _prep_culled (each also with the rays in their own order, so its tiles
+    stay as built), and sweep_inputs on the card launches both, past
+    SMEM_CLUSTERS one sweep_groups for the two, and calls no plain
     version."""
     dev = _card()
     if isinstance(case, int):
@@ -287,8 +422,14 @@ def test_prep_kernels_equal_plain(case, loong_scale_scene):
                                8: SMALL_BLOCK_CLUSTERS}.get(
             case, lo.shape[0]) and (case != 128 or lo.shape[0] > 512)
         cases = _prep_cases(dev, case)
+    elif case == PREP_MESH:
+        scene = prep_kernels.mesh_scene(dev)
+        lo, hi = scene.cl_aabb_min, scene.cl_aabb_max
+        assert lo.shape[0] > 512 * tsweep.CULL_GROUP   # two chunks
+        cases = _prep_cases(dev, prep_kernels.MESH_T)
     else:
-        lo, hi, cases = _prep_synthetic(case, dev)
+        lo, hi, cases = (_prep_culled if case in PREP_CULLED
+                         else _prep_synthetic)(case, dev)
         scene = SimpleNamespace(
             cl_aabb_min=lo, cl_aabb_max=hi,
             cl_trifeat=torch.zeros((lo.shape[0], 16, 4), device=dev))
@@ -301,7 +442,7 @@ def test_prep_kernels_equal_plain(case, loong_scale_scene):
         assert torch.equal(key, want), \
             f"{label}: key differs on {int((key != want).sum())} rays"
         perms = [torch.sort(key, stable=True).indices]
-        if n <= tsweep.TILE_R or not isinstance(case, int):
+        if n <= tsweep.TILE_R or case in PREP_SYNTHETIC + PREP_CULLED:
             perms.append(None)
         for perm in perms:
             got = tsweep.sweep_spans(o, d, mask, anyhit, perm, lo, hi)
@@ -313,18 +454,62 @@ def test_prep_kernels_equal_plain(case, loong_scale_scene):
                 assert torch.equal(g, w), (
                     f"{label}, perm {perm is not None}: {name} differs in "
                     f"{int((g != w).sum())} entries")
+            if (case in PREP_SYNTHETIC + PREP_CULLED and perm is None
+                    and lo.shape[0] > tsweep.SMEM_CLUSTERS):
+                # the tiles as built take the path the rule gives them, and
+                # sweep_runs counts the member tests that path makes
+                with timing.tracing(dev) as rec:
+                    tsweep.sweep_spans(o, d, mask, anyhit, None, lo, hi)
+                _, tests, fell_back = _culled_pairs(
+                    o, d, mask, torch.arange(n, device=dev), lo, hi)
+                assert rec.counters["k1a_pairs_tested"] == tests > 0
+                assert fell_back == {"culled: some tiles fall back": 32,
+                                     "past the shared memory": 63}.get(
+                    case, fell_back)
+                # the narrow tiles (even) keep their minima in the keys
+                assert case != "culled: three chunks" or fell_back < 32
             if case == "past the shared memory" and perm is None:
                 # every tile minimum finite but in the tile with no live ray
                 assert want[0].tolist() == [0 if i == 3 else lo.shape[0]
                                             for i in range(64)]
         launched = (tsweep.sweep_key.launches, tsweep.sweep_spans.launches)
         calls = (tsweep.sweep_key_plain.calls, tsweep.sweep_spans_plain.calls)
+        groups = tsweep.group_boxes.launches
         tsweep.sweep_inputs(scene, o, d, mask, anyhit)
         sort = o.shape[0] > tsweep.TILE_R
         assert (tsweep.sweep_key.launches, tsweep.sweep_spans.launches) \
             == (launched[0] + sort, launched[1] + 1)
+        # one cast's kernels share one launch of sweep_groups
+        assert tsweep.group_boxes.launches == groups + (
+            lo.shape[0] > tsweep.SMEM_CLUSTERS)
         assert (tsweep.sweep_key_plain.calls,
                 tsweep.sweep_spans_plain.calls) == calls
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [tsweep.SMEM_CLUSTERS + 37,
+                               SMALL_BLOCK_CLUSTERS])
+def test_group_boxes_kernel_equals_plain(c, loong_scale_scene):
+    """csrc/sweep_prep.cu's sweep_groups equals group_boxes_plain
+    (torch.equal) on random boxes with zero-thick and -0.0 coordinates and
+    on the main path's scene in blocks of 8; one launch, no plain call."""
+    dev = _card()
+    if c == SMALL_BLOCK_CLUSTERS:
+        scene = loong_scale_scene.build(cluster_size=8, device=dev)
+        lo, hi = scene.cl_aabb_min, scene.cl_aabb_max
+    else:
+        rng = np.random.default_rng(c)
+        lo = rng.uniform(-5, 5, (c, 3)).astype(np.float32)
+        lo[rng.random((c, 3)) < 0.05] = -0.0
+        hi = lo + (rng.uniform(0, 2, (c, 3))
+                   * (rng.random((c, 3)) < 0.9)).astype(np.float32)
+        lo, hi = torch.tensor(lo, device=dev), torch.tensor(hi, device=dev)
+    launches = tsweep.group_boxes.launches
+    got = tsweep.group_boxes(lo, hi)
+    assert tsweep.group_boxes.launches == launches + 1
+    want = tsweep.group_boxes_plain(lo, hi)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and torch.equal(got, want)
 
 
 @pytest.mark.cuda
@@ -387,7 +572,9 @@ def test_traced_counts_equal_plain(t_blk, n_rays, ctas, loong_scale_scene):
     here), and sweep_spans / sweep_runs (csrc/sweep_prep.cu) the rays that
     are masked on and enter some cluster: the same counts as sweep_plain's
     `visited` and sweep_spans_plain on the same inputs, the live rays those
-    whose key is not dead."""
+    whose key is not dead. k1a_pairs_tested is 0 at C <= SMEM_CLUSTERS and
+    in the plain versions, and past it the member tests _culled_pairs
+    counts."""
     dev = _card()
     scene = (_scene(t_blk, dev) if t_blk > 8 else
              loong_scale_scene.build(cluster_size=t_blk, device=dev))
@@ -414,6 +601,97 @@ def test_traced_counts_equal_plain(t_blk, n_rays, ctas, loong_scale_scene):
     assert kernel.counters["cast_live_rays"] == live > 0
     assert plain.counters["cast_live_rays"] == live
     assert kernel.counters["cast_lanes"] == padded[0].shape[0]
+    assert plain.counters["k1a_pairs_tested"] == 0
+    if lo.shape[0] <= tsweep.SMEM_CLUSTERS:
+        assert kernel.counters["k1a_pairs_tested"] == 0
+    else:
+        perm = torch.sort(tsweep.sweep_key_plain(*padded[:3], lo, hi),
+                          stable=True).indices
+        want = sum(_culled_pairs(*padded[:3], perm, lo, hi)[:2])
+        assert kernel.counters["k1a_pairs_tested"] == want
+        # these rays cross the sphere from all sides, so the cull keeps a
+        # quarter of the dense kernels' 2 x cast_pairs tests
+        assert 0 < want < kernel.counters["cast_pairs"]
+
+
+def _culled_pairs(o, d, mask, perm, lo, hi):
+    """The member slab tests that sweep_key_kernel_culled and sweep_runs
+    make on one cast (the counter k1a_pairs_tested), from the plain slab
+    test: a key warp (lanes i and i + 128 of a 256-ray CTA, two rays a
+    lane) tests group g's members if a live ray enters its box at an entry
+    below the least entry of the members before g; a warp of 32 rays of a
+    sweep_runs tile (in kernel order) if a live ray enters its box, in
+    _runs_path's culled batches, and in every group again where the tile
+    takes the runs path; 32 lanes x rays a lane x members each time.
+    Returns (sweep_key_kernel_culled's tests, sweep_runs's tests, the
+    tiles that took the runs path)."""
+    group = tsweep.CULL_GROUP
+    groups = tsweep.group_boxes_plain(lo, hi)
+    c, n_groups = lo.shape[0], groups.shape[1]
+    members = torch.clamp(c - group * torch.arange(n_groups, device=o.device),
+                          max=group)
+    inf = tsweep.INF
+
+    def entries(boxes_lo, boxes_hi, rays):
+        return torch.where(mask[rays, None], tsweep.cluster_tnear(
+            o[rays], d[rays], boxes_lo, boxes_hi), inf)
+
+    r = o.shape[0]
+    key_tests = runs_tests = fell_back = 0
+    for lo_r in range(0, r, 1024):          # whole key CTAs and tiles
+        rays = torch.arange(lo_r, min(lo_r + 1024, r), device=o.device)
+        e = entries(lo, hi, rays)
+        e_g = entries(groups[0], groups[1], rays)
+        pad = n_groups * group - c
+        g_min = torch.nn.functional.pad(e, (0, pad), value=inf).reshape(
+            -1, n_groups, group).amin(dim=2)
+        before = torch.cat([torch.full_like(g_min[:, :1], inf),
+                            torch.cummin(g_min, dim=1).values[:, :-1]], 1)
+        want = torch.nn.functional.pad(          # rays of whole CTAs
+            e_g < before, (0, 0, 0, (-rays.shape[0]) % 256))
+        want = want.reshape(-1, 2, 4, 32, n_groups)   # CTA, q, warp, lane
+        key_tests += int((want.any(dim=3).any(dim=1).sum(dim=(0, 1))
+                          * members).sum()) * 64
+        k_rays = perm[rays]
+        warp_in = (entries(groups[0], groups[1], k_rays) < inf).reshape(
+            -1, 32, n_groups).any(dim=1)                     # (warps, G)
+        finite = torch.nn.functional.pad(
+            entries(lo, hi, k_rays).reshape(-1, 128, c).amin(dim=1) < inf,
+            (0, pad)).reshape(-1, n_groups, group).sum(dim=2)  # (tiles, G)
+        tile_in = warp_in.reshape(-1, 4, n_groups).any(dim=1)
+        for t in range(tile_in.shape[0]):
+            tested, runs = _runs_path(tile_in[t].cpu().numpy(),
+                                      finite[t].cpu().numpy(),
+                                      members.cpu().numpy(), c)
+            w = warp_in[4 * t:4 * t + 4].cpu().numpy()
+            n = (w & tested).sum(axis=0) + (w.sum(axis=0) if runs else 0)
+            runs_tests += int((n * members.cpu().numpy()).sum()) * 32
+            fell_back += runs
+    return key_tests, runs_tests, fell_back
+
+
+def _runs_path(entered, finite, members, c, keys_cap=4096, chunk=512,
+               batch=16):
+    """sweep_runs's culled pass on one tile, from the groups it enters and
+    their members with finite tile minima: (the groups whose members it
+    tested, whether the tile took the runs path). Chunk by chunk of group
+    boxes, after the chunk's group tests, it leaves when the entered
+    groups so far hold more than keys_cap members and at least half the
+    clusters; else it tests the entered groups in batches, and leaves
+    after the batch that takes the finite minima past keys_cap."""
+    tested = np.zeros_like(entered)
+    held = nf = 0
+    for lo in range(0, len(entered), chunk):
+        ids = lo + np.flatnonzero(entered[lo:lo + chunk])
+        held += int(members[ids].sum())
+        if held > keys_cap and 2 * held >= c:
+            return tested, True
+        for b in range(0, len(ids), batch):
+            tested[ids[b:b + batch]] = True
+            nf += int(finite[ids[b:b + batch]].sum())
+            if nf > keys_cap:
+                return tested, True
+    return tested, False
 
 
 @pytest.mark.cuda

@@ -215,3 +215,213 @@ def test_finite_case_enters_every_box():
     assert bool((tn < INF).all())
     nspan = tsweep.sweep_spans_plain(o, d, mask, anyhit, None, lo, hi)[0]
     assert nspan.tolist() == [lo.shape[0]] * 2
+
+
+def test_sass_reader_tells_the_culled_kernel_apart():
+    """sweep_key_kernel_culled (the key kernel past SMEM_CLUSTERS) holds
+    sweep_key_kernel's name in its own and a loop with a slab test, but
+    the per-pair counts stay those of sweep_key_kernel wherever its
+    listing falls."""
+    culled = """
+		Function : _ZN12_GLOBAL__N_123sweep_key_kernel_culledEPKfS1_PKbS1_S1_S1_S1_PiiiPy
+        /*0000*/                   FMUL R5, R5, R7 ;
+        /*0010*/                   FMUL R6, R5, R7 ;
+        /*0020*/                   FMUL R6, R5, R7 ;
+        /*0030*/                   FMUL R6, R5, R7 ;
+        /*0040*/                   FMUL R6, R5, R7 ;
+        /*0050*/                   FMUL R6, R5, R7 ;
+        /*0060*/               @P0 BRA 0x0 ;
+        /*0070*/                   EXIT ;
+"""
+    want = prep_kernels.parse_sass(SASS)
+    head, tail = SASS.split("\t\tFunction : _ZN12_GLOBAL__N_118sweep_spans")
+    for text in (SASS + culled, culled + SASS, head + culled
+                 + "\t\tFunction : _ZN12_GLOBAL__N_118sweep_spans" + tail):
+        assert prep_kernels.parse_sass(text) == want
+
+
+@pytest.mark.parametrize("c", [1, 31, 32, 33, tsweep.SMEM_CLUSTERS + 37,
+                               14172])
+def test_group_boxes_equal_numpy_min_max(c):
+    """group_boxes (group_boxes_plain on the CPU) is, for each run of
+    CULL_GROUP consecutive clusters, the numpy min of their cl_min and max
+    of their cl_max, the last run partial where C is no multiple of 32;
+    with zero-thick and -0.0 coordinates among the boxes."""
+    rng = np.random.default_rng(c)
+    lo = rng.uniform(-5, 5, (c, 3)).astype(np.float32)
+    lo[rng.random((c, 3)) < 0.05] = -0.0
+    hi = (lo + rng.uniform(0, 2, (c, 3)) * (rng.random((c, 3)) < 0.9)
+          ).astype(np.float32)
+    got = tsweep.group_boxes(torch.tensor(lo), torch.tensor(hi))
+    group = tsweep.CULL_GROUP
+    n = -(-c // group)
+    assert got.dtype == torch.float32 and tuple(got.shape) == (2, n, 3)
+    runs = [slice(g * group, (g + 1) * group) for g in range(n)]
+    want = np.stack([np.stack([lo[r].min(axis=0) for r in runs]),
+                     np.stack([hi[r].max(axis=0) for r in runs])])
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def _slab_interval(o, d, lo, hi):
+    """csrc/sweep_prep.cu's reciprocal and slabs in float32 torch ops, one
+    rounding an op: (t0, t1) (R, B) of each ray against each box, the
+    three axes folded without starting values."""
+    eps = torch.tensor(1e-12, dtype=torch.float32)
+    inv = 1.0 / torch.where(d.abs() < eps, torch.where(d < 0, -eps, eps), d)
+    t0 = t1 = None
+    for ax in range(3):
+        near = (lo[None, :, ax] - o[:, None, ax]) * inv[:, None, ax]
+        far = (hi[None, :, ax] - o[:, None, ax]) * inv[:, None, ax]
+        enter, leave = torch.minimum(near, far), torch.maximum(near, far)
+        t0 = enter if t0 is None else torch.maximum(t0, enter)
+        t1 = leave if t1 is None else torch.minimum(t1, leave)
+    return t0, t1
+
+
+def _enters(t0, t1):
+    return (t1 >= t0) & (t1 > 0.0) & (t0 <= INF)
+
+
+def _entry_bits(t0):
+    """max(t0, +0.0)'s bits as a (non-negative) int32."""
+    return torch.clamp(t0.contiguous().view(torch.int32), min=0)
+
+
+def _glass5m_like_boxes(c=30741, per=16, seed=0):
+    """c cluster boxes at glass5m's count: the floor quad's flat box, then
+    boxes of `per` consecutive points of the unit sphere about (0, 0, 3) in
+    Morton order, as clusters of BVH leaves in leaf order are."""
+    rng = np.random.default_rng(seed)
+    p = rng.normal(size=((c - 1) * per, 3))
+    p = p / np.linalg.norm(p, axis=1, keepdims=True) + np.array([0, 0, 3.0])
+    q = ((p - p.min(0)) / (p.max(0) - p.min(0)) * 1023).astype(np.int64)
+    morton = np.zeros(len(p), np.int64)
+    for bit in range(10):
+        for ax in range(3):
+            morton |= ((q[:, ax] >> bit) & 1) << (3 * bit + ax)
+    p = p[np.argsort(morton, kind="stable")].astype(np.float32)
+    p = p.reshape(c - 1, per, 3)
+    floor = np.float32([[-10.0, -1.0, -7.0], [10.0, -1.0, 13.0]])
+    lo = np.concatenate([floor[:1], p.min(axis=1)])
+    hi = np.concatenate([floor[1:], p.max(axis=1)])
+    return torch.tensor(lo), torch.tensor(hi)
+
+
+@pytest.fixture(scope="module")
+def cull_boxes():
+    """{name: (cl_min, cl_max)}: glass5m-like boxes and those of the
+    81,922-triangle scene in blocks of 8 (14,172 clusters)."""
+    from opengl_ray_tracing_framework_tpu_torch.models.scene import (
+        build_test_scene)
+
+    scene = build_test_scene(6, device="cpu")[0].build(cluster_size=8,
+                                                       device="cpu")
+    return {"glass5m-like": _glass5m_like_boxes(),
+            "14,172 clusters": (scene.cl_aabb_min, scene.cl_aabb_max)}
+
+
+def _cull_rays(kind, g_lo, g_hi, lo, seed, n=192):
+    """Rays towards the sphere from around the scene (random), or from the
+    corners, edges and faces of group boxes and member boxes, exact in
+    float32, whose direction components are often +-0.0, below or at the
+    1e-12 clamp (edge)."""
+    rng = np.random.default_rng(seed)
+    o = rng.normal(0, 2.0, (n, 3)).astype(np.float32)
+    o[:, 2] -= 1.0
+    d = (np.float32([0.0, 0.0, 3.0]) - o
+         + rng.normal(0, 0.6, (n, 3))).astype(np.float32)
+    if kind == "edge":
+        g = rng.integers(0, g_lo.shape[0], n)
+        side = rng.random((n, 3)) < 0.5
+        o = np.where(side, g_lo[g], g_hi[g])                 # corners
+        inside = rng.uniform(g_lo[g], g_hi[g]).astype(np.float32)
+        axis = rng.integers(0, 3, n)
+        i = np.arange(n)
+        o[i % 3 == 1, axis[i % 3 == 1]] = inside[i % 3 == 1,
+                                                 axis[i % 3 == 1]]   # edges
+        o[i % 3 == 2] = inside[i % 3 == 2]
+        o[i % 3 == 2, axis[i % 3 == 2]] = np.where(
+            side, g_lo[g], g_hi[g])[i % 3 == 2, axis[i % 3 == 2]]    # faces
+        o[i % 5 == 4] = lo[rng.integers(0, lo.shape[0], n)][i % 5 == 4]
+        special = np.float32([0.0, -0.0, 1e-13, -1e-13, 1e-12, -1e-12])
+        zap = rng.random((n, 3)) < 0.4
+        d[zap] = special[rng.integers(0, len(special), zap.sum())]
+        d[i % 7 == 0] = np.float32([0.0, -0.0, 1.0])
+    return torch.tensor(o), torch.tensor(d)
+
+
+@pytest.mark.parametrize("kind", ["random", "edge"])
+@pytest.mark.parametrize("boxes", ["glass5m-like", "14,172 clusters"])
+def test_group_box_covers_its_members(boxes, kind, cull_boxes):
+    """The cull's premise (csrc/sweep_prep.cu, group_covers) under the
+    kernels' own float32 arithmetic: against every member's group box a
+    ray's t0 is <= its t0 and t1 >= its t1, so a ray that enters a member
+    enters the group box at entry bits <= the member's. The group boxes
+    skip most members: most (ray, group) pairs enter no group, and some
+    enter a group box but none of its members."""
+    lo, hi = cull_boxes[boxes]
+    groups = tsweep.group_boxes(lo, hi)
+    o, d = _cull_rays(kind, groups[0].numpy(), groups[1].numpy(),
+                      lo.numpy(), len(boxes) + len(kind))
+    member_of = torch.arange(lo.shape[0]) // tsweep.CULL_GROUP
+    entered = group_only = 0
+    for sl in (slice(j, j + 32) for j in range(0, o.shape[0], 32)):
+        t0, t1 = _slab_interval(o[sl], d[sl], lo, hi)
+        gt0, gt1 = _slab_interval(o[sl], d[sl], groups[0], groups[1])
+        assert not (torch.isnan(t0).any() or torch.isnan(gt0).any())
+        assert bool((gt0[:, member_of] <= t0).all())
+        assert bool((gt1[:, member_of] >= t1).all())
+        inside = _enters(t0, t1)
+        g_in = _enters(gt0, gt1)
+        assert bool(g_in[:, member_of][inside].all())
+        assert bool((_entry_bits(gt0)[:, member_of]
+                     <= _entry_bits(t0))[inside].all())
+        entered += int(inside.sum())
+        pad = g_in.shape[1] * tsweep.CULL_GROUP - inside.shape[1]
+        hit = torch.nn.functional.pad(inside, (0, pad)).reshape(
+            inside.shape[0], -1, tsweep.CULL_GROUP).any(dim=2)
+        group_only += int((g_in & ~hit).sum())
+        assert float(g_in.float().mean()) < 0.5
+    assert entered > 100 and group_only > 10
+
+
+def test_k1a_pairs_tested_stays_zero_on_the_cpu():
+    """Under tracing() on the CPU a cast past SMEM_CLUSTERS clusters runs
+    the plain versions, which test every pair and count none in
+    k1a_pairs_tested; cast_pairs still counts R x C."""
+    from types import SimpleNamespace
+
+    from opengl_ray_tracing_framework_tpu_torch.utils import timing
+
+    boxes, (o, d, mask, anyhit) = prep_kernels.finite_case("cpu", 256)
+    c = boxes.cl_aabb_min.shape[0]
+    scene = SimpleNamespace(cl_aabb_min=boxes.cl_aabb_min,
+                            cl_aabb_max=boxes.cl_aabb_max,
+                            cl_trifeat=torch.zeros((c, 16, 4)))
+    with timing.tracing("cpu") as rec:
+        tsweep.sweep_inputs(scene, o, d, mask, anyhit)
+    assert c > tsweep.SMEM_CLUSTERS
+    assert rec.counters["k1a_pairs_tested"] == 0
+    assert rec.counters["cast_pairs"] == 256 * c
+    assert rec.counters["cast_runs"] == 1
+
+
+def test_culled_groups_takes_the_callers_boxes():
+    """The group boxes a cast's two kernels share (ops/sweep.py
+    _culled_groups): none at C <= SMEM_CLUSTERS, where the kernels test
+    every pair; past it the caller's boxes as given, group_boxes when the
+    caller has none, and a ValueError for boxes of another shape or
+    dtype."""
+    c = tsweep.SMEM_CLUSTERS + 37
+    rng = np.random.default_rng(c)
+    lo = torch.tensor(rng.uniform(-5, 5, (c, 3)).astype(np.float32))
+    hi = lo + 1
+    cpu = torch.device("cpu")
+    small = tsweep.SMEM_CLUSTERS
+    assert tsweep._culled_groups("t", cpu, lo[:small], hi[:small]) is None
+    groups = tsweep.group_boxes_plain(lo, hi)
+    assert tsweep._culled_groups("t", cpu, lo, hi, groups) is groups
+    assert torch.equal(tsweep._culled_groups("t", cpu, lo, hi), groups)
+    for bad in (groups[:, :-1].contiguous(), groups.double()):
+        with pytest.raises(ValueError, match="groups"):
+            tsweep._culled_groups("t", cpu, lo, hi, bad)
