@@ -8,8 +8,8 @@ when torch sees no CUDA device, and when anything below fails:
 
  1. device: the card's name and power limit (nvidia-smi);
  2. build: nvcc compiles every source of csrc/ (sweep.cu, the span-sweep
-    kernel K1; sweep_prep.cu, K1's preparation kernels sweep_key and
-    sweep_spans; cluster_intersect.cu, the cluster-intersect kernel K2;
+    kernel K1; sweep_prep.cu, K1's preparation kernels sweep_groups,
+    sweep_key and sweep_spans; cluster_intersect.cu, the cluster-intersect kernel K2;
     shade.cu, the forward bounce's shading kernels shade_bsdf and
     shade_nee; the four probe kernels probe_copy, probe_gather,
     probe_smem (with the empty launch-floor kernel), probe_stream),
@@ -29,22 +29,20 @@ when torch sees no CUDA device, and when anything below fails:
     a 128x64 grid of the frame, each equal to sweep_plain (every hit and
     triangle, t to 1e-6 relative), with its bound and microseconds per
     span of the longest walk; then K1's preparation kernels (sweep_key,
-    sweep_spans) against their plain versions, every output equal
-    (torch.equal; the key int32), on a 131,072-ray primary cast, the first
-    bounce's merged pair, the bounce-4 pair, and the primary cast and pair
-    on the blocks of 512 and 1,024, each timed by CUDA-graph replays
+    sweep_spans, both culled by the group boxes of sweep_groups) against
+    their plain versions, every output equal (torch.equal; the key
+    int32), on a 131,072-ray primary cast, the first bounce's merged pair,
+    the bounce-4 pair, the primary cast and pair on the blocks of 512 and
+    1,024, 8,193 boxes that every ray enters (every tile minimum finite,
+    so every tile takes sweep_spans's runs path), and the primary cast and
+    pair on the scene rebuilt in blocks of 8 (14,172 clusters) and on its
+    sphere at 7 subdivisions in blocks of 16 (327,682 triangles in 29,442
+    clusters: group boxes in two chunks), each timed by CUDA-graph replays
     beside its plain version, the stable torch.sort of the keys and its
     bound (probes/prep_kernels.py's run_case), and the SASS instructions
-    per (ray, cluster) pair of each kernel's slab-test loop by pipe; then
-    past the 8,192 clusters sweep_spans holds in shared memory (the
-    kernels culled by group boxes, sweep_key_kernel_culled and sweep_runs):
-    8,193 boxes that every ray enters (every tile minimum finite, so every
-    tile takes sweep_runs's runs path), and the primary cast and pair on
-    the scene rebuilt in blocks of 8 (14,172 clusters) and on its sphere
-    at 7 subdivisions in blocks of 16 (327,682 triangles in 29,442
-    clusters: group boxes in two chunks), the same way; the group
-    boxes (sweep_groups) of those two scenes and of 30,741 random boxes
-    (glass5m's count) equal to group_boxes_plain, timed beside their
+    per (ray, cluster) pair of each kernel's slab-test loop by pipe; the
+    group boxes (sweep_groups) of the last two scenes and of 30,741 random
+    boxes (glass5m's count) equal to group_boxes_plain, timed beside their
     bound; and K1 on the primary cast and pair on blocks of 8 against
     sweep_plain (every hit and triangle equal);
  4. K2 against its plain version at the schedule path's shapes: the same
@@ -58,16 +56,14 @@ when torch sees no CUDA device, and when anything below fails:
  5. the default render: render_progressive at 1024x512, 8 bounces, BSDF,
     HDR environment + MIS, tear-glass sphere, 1024x512 procedural HDR,
     sweep tracer; one warm-up pass and two timed passes, each fenced by a
-    host copy; K1 and both preparation kernels must be launched and their
-    plain versions never called, and the shading kernels shade_bsdf and
-    shade_nee once a bounce each;
+    host copy; K1 and both preparation kernels must be launched, with one
+    sweep_groups a cast, and their plain versions never called, and the
+    shading kernels shade_bsdf and shade_nee once a bounce each;
  6. card against CPU: render_radiance at 128x64, 2 spp, 8 bounces, on the
     card (kernel) and on the CPU (plain version), held to the hardware
     lane's image criterion (tests/test_tpu.py:57-60); then the same on
-    phase 3's blocks of 8, where the culled kernels prepare every cast
-    (sweep_key_kernel_culled, sweep_runs and one sweep_groups a cast
-    launched, their counts the kernels line's, no plain version called
-    on the card);
+    phase 3's blocks of 8 (sweep_key, sweep_spans and one sweep_groups a
+    cast launched, no plain version called on the card);
  7. the schedule render: the same frame with cast_backend="schedule", one
     warm-up and one timed pass; K2 must be launched, its plain version and
     K1 never; then the schedule image against the sweep image on the card
@@ -194,12 +190,9 @@ embedding_bag), timed here and used nowhere in the port. The kernels line
 has one entry per kernel: csrc/probe_gather.cu holds two, the gather
 (probe_gather) and the chained lookups (probe_chained), and csrc/shade.cu
 two, shade_bsdf and shade_nee, which replace no TPU kernel; and
-csrc/sweep_prep.cu holds, besides sweep_key and sweep_spans (timed at 484
-clusters, their launches phase 5's), the kernels past 8,192 clusters:
-sweep_key_culled (sweep_key_kernel_culled), sweep_runs (its main case the
-pair on blocks of 8) and sweep_groups (which replaces no TPU kernel; its
-main case the 30,741 random boxes), their launches phase 6's render on
-blocks of 8.
+csrc/sweep_prep.cu three, sweep_key and sweep_spans (their main case the
+pair on 484 clusters) and sweep_groups (which replaces no TPU kernel; its
+main case the 30,741 random boxes), their launches phase 5's.
 
 It prints one line of numbers per phase, then a JSON line describing the
 kernels, then {"ok": true, "device": {...}} as the last line. --profile
@@ -233,8 +226,7 @@ PEAK_HBM_BYTES = 3.35e12    # H100 SXM, HBM3
 CLI_RAYS_PER_TILE = 131072  # the CLI's default --rays-per-tile
 RANKS_TIMEOUT_S = 600       # a spawned group that takes longer fails
 PREP_RAYS = 131072          # the preparation kernels' primary cast
-SMALL_T = 8                 # blocks of 8: 14,172 clusters, past the
-                            # preparation's shared-memory path
+SMALL_T = 8                 # blocks of 8: 14,172 clusters
 GROUP_CASE_CLUSTERS = 30741   # glass5m's clusters: random boxes for
                               # sweep_groups
 PORT = "opengl_ray_tracing_framework_tpu_torch"
@@ -340,8 +332,8 @@ def profile_pass(label, ortf, scene, camera, config):
     print(f"profile {label}: pass {pass_s[0]:.3f} s under the profiler | "
           f"device in kernels {busy:.3f} s ({busy / pass_s[0]:.1%} of it), "
           f"{sum(r[2] for r in rows)} device operations | top: {top}")
-    for kernel in ("sweep_kernel", "sweep_key_kernel", "sweep_spans_kernel",
-                   "cluster_intersect_kernel"):
+    for kernel in ("sweep_kernel", "sweep_groups_kernel", "sweep_key_kernel",
+                   "sweep_spans_kernel", "cluster_intersect_kernel"):
         hits = [r for r in rows if kernel in r[0]]
         if hits:
             t, n = sum(r[1] for r in hits), sum(r[2] for r in hits)
@@ -1487,9 +1479,7 @@ def main() -> int:
     # K1's preparation kernels against their plain versions, every output
     # equal, at the main path's shapes, by the probe's own run_case; the
     # SASS instructions per (ray, cluster) pair at the pair
-    prep = {"sweep_key": {}, "sweep_spans": {}}
-    # the same kernels' wrappers past SMEM_CLUSTERS, and sweep_groups
-    culled = {"sweep_key_culled": {}, "sweep_runs": {}, "sweep_groups": {}}
+    prep = {"sweep_key": {}, "sweep_spans": {}, "sweep_groups": {}}
     prep_pid = frame_order[:PREP_RAYS]
     prep_o, prep_d = camera.generate_rays(
         ((prep_pid % WIDTH).float() + 0.5) / WIDTH,
@@ -1497,7 +1487,6 @@ def main() -> int:
     prep_ones = torch.ones(PREP_RAYS, dtype=torch.bool, device=dev)
     prep_primary = (prep_o, prep_d, prep_ones, torch.zeros_like(prep_ones))
 
-    # past the clusters sweep_spans holds in shared memory (sweep_runs):
     # boxes that every ray enters (every tile minimum finite) and the scene
     # rebuilt in blocks of SMALL_T triangles
     t0 = time.perf_counter()
@@ -1505,9 +1494,6 @@ def main() -> int:
     n_small = small_scene.cl_trifeat.shape[0]
     print(f"scene: rebuilt in {n_small} clusters of {SMALL_T} in "
           f"{time.perf_counter() - t0:.2f} s")
-    if n_small <= sw.SMEM_CLUSTERS:
-        fail(f"blocks of {SMALL_T}: {n_small} clusters, not past "
-             f"{sw.SMEM_CLUSTERS}")
     t0 = time.perf_counter()
     mesh_sc = prep_kernels.mesh_scene(dev)
     n_mesh = mesh_sc.cl_trifeat.shape[0]
@@ -1538,21 +1524,17 @@ def main() -> int:
                  "torch.int32")
         if name == finite_name and res["nspan_min"] != res["clusters"]:
             fail(f"prep {name}: a tile minimum is INF")
-        if res["clusters"] > sw.SMEM_CLUSTERS:
-            culled["sweep_key_culled"][name] = res["sweep_key"]
-            culled["sweep_runs"][name] = res["sweep_spans"]
-        else:
-            for kname, cases in prep.items():
-                cases[name] = res[kname]
+        for kname in ("sweep_key", "sweep_spans"):
+            prep[kname][name] = res[kname]
         if name == "pair":
             prep_kernels.sass_report(res["pairs"])
     del finite_boxes, finite_rays
     for name, sc in ((f"T {SMALL_T}", small_scene),
                      (f"{n_mesh} clusters", mesh_sc)):
-        culled["sweep_groups"][name] = prep_kernels.groups_case(
+        prep["sweep_groups"][name] = prep_kernels.groups_case(
             name, sc.cl_aabb_min, sc.cl_aabb_max, plain=True)
     group_case = f"random, {GROUP_CASE_CLUSTERS}"
-    culled["sweep_groups"][group_case] = prep_kernels.groups_case(
+    prep["sweep_groups"][group_case] = prep_kernels.groups_case(
         group_case, *prep_kernels.random_boxes(dev, GROUP_CASE_CLUSTERS),
         plain=True)
     del mesh_sc
@@ -1715,7 +1697,8 @@ def main() -> int:
                                keep=first_passes)
     k1_launches, plain_calls = sw.sweep.launches, sw.sweep_plain.calls
     prep_launches = {"sweep_key": sw.sweep_key.launches,
-                     "sweep_spans": sw.sweep_spans.launches}
+                     "sweep_spans": sw.sweep_spans.launches,
+                     "sweep_groups": sw.group_boxes.launches}
     prep_plain = (sw.sweep_key_plain.calls, sw.sweep_spans_plain.calls)
     timed = pass_s[1:]
     mean_s = sum(timed) / len(timed)
@@ -1726,9 +1709,11 @@ def main() -> int:
           f"{', '.join(f'{s:.3f}' for s in timed)} s, mean {mean_s:.3f} s | "
           f"{rays / mean_s:,.0f} rays/s | peak {peak / 2**30:.2f} GiB | K1 "
           f"launches {k1_launches} ({k1_launches // 3} per pass), plain "
-          f"calls {plain_calls} | sweep_key / sweep_spans launches "
+          f"calls {plain_calls} | sweep_groups / sweep_key / sweep_spans "
+          f"launches {prep_launches['sweep_groups']} / "
           f"{prep_launches['sweep_key']} / {prep_launches['sweep_spans']} "
-          f"({prep_launches['sweep_key'] // 3} / "
+          f"({prep_launches['sweep_groups'] // 3} / "
+          f"{prep_launches['sweep_key'] // 3} / "
           f"{prep_launches['sweep_spans'] // 3} per pass), plain calls "
           f"{prep_plain[0]} / {prep_plain[1]} | shade_bsdf / shade_nee "
           f"launches {shade.shade_bsdf.launches} / {shade.shade_nee.launches}"
@@ -1746,9 +1731,10 @@ def main() -> int:
     if prep_plain != (0, 0):
         fail(f"the render called sweep_key_plain / sweep_spans_plain "
              f"{prep_plain} times")
-    if sw.group_boxes.launches:   # 484 clusters: no group boxes
-        fail(f"the render launched sweep_groups {sw.group_boxes.launches} "
-             "times")
+    if prep_launches["sweep_groups"] != prep_launches["sweep_spans"]:
+        fail(f"the render launched sweep_groups "
+             f"{prep_launches['sweep_groups']} times in "
+             f"{prep_launches['sweep_spans']} casts")
     if ci.cluster_intersect.launches or ci.cluster_intersect_plain.calls:
         fail("the sweep render reached the cluster-intersect kernel")
     if args.png:
@@ -1770,9 +1756,7 @@ def main() -> int:
     compare_images("parity card vs cpu", sweep_small, cpu_img,
                    f"128x64, 2 spp, {BOUNCES} bounces | card {gpu_s:.2f} s, "
                    f"cpu {cpu_s:.2f} s | ")
-    # the same on phase 3's blocks of SMALL_T: every cast of the card's
-    # render prepared by the culled kernels, whose launches the kernels
-    # line reports
+    # the same on phase 3's blocks of SMALL_T
     sw.sweep_key.launches = sw.sweep_spans.launches = 0
     sw.group_boxes.launches = sw.sweep_key_plain.calls = 0
     sw.sweep_spans_plain.calls = sw.sweep_plain.calls = 0
@@ -1780,10 +1764,9 @@ def main() -> int:
     small_img = ortf.render_radiance(small_scene, cam_small, small, spp=2)
     torch.cuda.synchronize()
     gpu_s = time.perf_counter() - t0
-    launched = sw.sweep_spans.launches
-    culled_launches = {"sweep_key_culled": sw.sweep_key.launches,
-                       "sweep_runs": launched,
-                       "sweep_groups": sw.group_boxes.launches}
+    launched = {"sweep_groups": sw.group_boxes.launches,
+                "sweep_key": sw.sweep_key.launches,
+                "sweep_spans": sw.sweep_spans.launches}
     plain = (sw.sweep_key_plain.calls + sw.sweep_spans_plain.calls
              + sw.sweep_plain.calls)
     t0 = time.perf_counter()
@@ -1793,15 +1776,14 @@ def main() -> int:
     compare_images(f"parity card vs cpu, {n_small} clusters", small_img,
                    cpu_img,
                    f"128x64, 2 spp, {BOUNCES} bounces | card {gpu_s:.2f} s "
-                   f"(sweep_key_kernel_culled / sweep_runs / sweep_groups "
-                   f"launches {culled_launches['sweep_key_culled']} / "
-                   f"{launched} / {culled_launches['sweep_groups']}, plain "
+                   f"(sweep_groups / sweep_key / sweep_spans launches "
+                   f"{' / '.join(str(n) for n in launched.values())}, plain "
                    f"calls {plain}), cpu {cpu_s:.2f} s | ")
-    if (min(culled_launches.values()) <= 0 or plain
-            or culled_launches["sweep_groups"] != launched):
-        fail(f"the render on {n_small} clusters launched {culled_launches} "
-             f"and called a plain version {plain} times (one sweep_groups "
-             "a cast)")
+    if (min(launched.values()) <= 0 or plain
+            or launched["sweep_groups"] != launched["sweep_spans"]):
+        fail(f"the render on {n_small} clusters launched {launched} and "
+             f"called a plain version {plain} times (one sweep_groups a "
+             "cast)")
 
     # 7. the schedule render
     torch.cuda.synchronize()
@@ -1937,17 +1919,8 @@ def main() -> int:
               "opengl_ray_tracing_framework_tpu/ops/sweep.py:299",
               prep_launches["sweep_spans"], prep["sweep_spans"], "pair",
               source="sweep_prep"),
-        entry("sweep_key_culled",
-              "opengl_ray_tracing_framework_tpu/ops/sweep.py:286",
-              culled_launches["sweep_key_culled"],
-              culled["sweep_key_culled"], f"pair, T {SMALL_T}",
-              source="sweep_prep"),
-        entry("sweep_runs",
-              "opengl_ray_tracing_framework_tpu/ops/sweep.py:299",
-              culled_launches["sweep_runs"], culled["sweep_runs"],
-              f"pair, T {SMALL_T}", source="sweep_prep"),
-        entry("sweep_groups", None, culled_launches["sweep_groups"],
-              culled["sweep_groups"], group_case, source="sweep_prep"),
+        entry("sweep_groups", None, prep_launches["sweep_groups"],
+              prep["sweep_groups"], group_case, source="sweep_prep"),
         entry("cluster_intersect",
               "opengl_ray_tracing_framework_tpu/ops/intersect_pallas.py:66",
               k2_launches, k2, k2_main),

@@ -9,112 +9,102 @@
 // (:299-322). XLA fuses both slab passes into their reductions there, so
 // no (rays, clusters) matrix is written; the same holds here. Same
 // contract as the plain PyTorch versions in ops/sweep.py (sweep_key_plain,
-// sweep_spans_plain), value for value.
+// sweep_spans_plain, group_boxes_plain), value for value.
 //
-// What bounds both kernels on this card: the slab test, ~27 FP32
+// What bounds the kernels on this card: the slab test, ~27 FP32
 // operations per (live ray, cluster) pair against few bytes
 // (probes.prep_bound). Of its instructions the 6 subtractions and 6
 // products issue on the FMA pipe; the 10 min / max and the compares issue
 // on the ALU pipe, at half the FMA pipe's rate, so the ALU pipe and the
 // issue rate, not the FP32 peak, set how near the bound a kernel gets
 // (probes/prep_kernels.py counts each kernel's SASS per pair; PERF.md has
-// the times). The designs spend as few instructions per pair as that
-// allows: each pair's slab test runs once in each kernel, boxes come from
-// shared memory as 16-byte broadcasts, the INF starting values of the
-// fold are gone, and what a warp shares (its tile minimum, an all-masked
-// warp's skip) costs one warp-wide instruction, not one per ray.
+// the times). So the kernels test as few pairs as they can, and spend as
+// few instructions on each as that allows: each pair's slab test runs at
+// most once in each kernel, boxes come from shared memory as 16-byte
+// broadcasts, the INF starting values of the fold are gone, and what a
+// warp shares (its tile minimum, an all-masked warp's skip) costs one
+// warp-wide instruction, not one per ray. A cast runs sweep_groups once,
+// then sweep_key, torch.sort of the keys and sweep_spans, whatever its C.
 //
-//   sweep_key: two rays per thread (KEY_RAYS), as independent chains,
-//   and CTAs of 128 threads (KEY_THREADS). The cluster boxes pass through shared memory in
-//   chunks of CHUNK, as six coordinate arrays read four boxes at a time
-//   (six 16-byte broadcasts per four boxes). A warp whose rays are all
-//   masked skips the boxes. Each ray keeps its least entry distance and
-//   its first index and writes the int32 key nearest * 128 + kphi * 8 +
-//   kct, or DEAD_KEY for a masked ray or one that enters no cluster
-//   (least < INF says whether it entered one). The stable sort of the
-//   keys stays torch.sort. Small casts (a few hundred rays) are latency:
-//   CTAs of 128 keep more SMs busy there.
-//
-//   sweep_spans: one CTA per tile of TILE_R rays in kernel order (ray i
-//   of the tile is ray perm[i] of the inputs: the sort's gathers happen
-//   here). Thread i owns the tile's ray i and computes its entry distance
-//   to each cluster once: it folds it into the ray's cap and, by one
-//   redux.sync minimum over the warp, into the warp's row of minima in
-//   shared memory (every lane stores the same word: one store, no
-//   branch); the four rows' minimum is the tile minimum. Every entry
-//   distance is +0.0, positive or INF, so its bits order as unsigned
-//   integers do (cluster_tnear never gives -0.0). A masked ray gives INF;
-//   a warp with no live ray skips the boxes; a tile with no live ray
-//   writes every entry INF with the clusters in index order and sorts
-//   nothing. The others compact their finite minima, in index order, into
-//   64-bit keys (the float's bits above the index) and sort only those: a
-//   tile overlaps few clusters, so the bitonic sort runs on one warp over
-//   at most 64 keys in most tiles, and the index in the low bits makes it
-//   the stable sort. The INF entries follow in index order. This path
-//   holds all C tile minima and keys in shared memory, so it takes C up to
-//   SMEM_CLUSTERS (ops/sweep.py SMEM_CLUSTERS).
-//
-//   Past SMEM_CLUSTERS the two kernels cull their slab tests with group
-//   boxes: sweep_groups writes one box per GROUP consecutive clusters (the
-//   last group may be partial), the exact elementwise min / max of its
-//   members' boxes. Clusters are BVH subtrees in leaf order, so a run of
-//   them is a spatial neighbourhood and its box is tight. A ray tests a
-//   group's members only if it enters the group box (group_covers has the
+//   sweep_groups: one box per GROUP consecutive clusters (the last group
+//   may be partial), the exact elementwise min / max of its members'
+//   boxes. Clusters are BVH subtrees in leaf order, so a run of them is a
+//   spatial neighbourhood and its box is tight. A ray tests a group's
+//   members only if it enters the group box (group_covers has the
 //   argument that this skips no member a ray enters). The members of an
 //   entered group are read from global memory (the boxes stay in L2).
 //
-//   sweep_key_kernel_culled: sweep_key for C > SMEM_CLUSTERS. The group
-//   boxes pass through shared memory in chunks of CHUNK; a warp tests a
-//   group's 32 members, staged in its own slab, only if one of its rays
-//   enters the group box at an entry below that ray's least so far. The
-//   groups and members go in ascending index order, so the strict < of
-//   the argmin keeps the first least index as before.
+//   sweep_key: two rays per thread (KEY_RAYS), as independent chains,
+//   and CTAs of 128 threads (KEY_THREADS). The group boxes pass through
+//   shared memory in chunks of CHUNK, as six coordinate arrays read four
+//   boxes at a time (six 16-byte broadcasts per four boxes); a warp whose
+//   rays are all masked skips them. A warp tests a group's 32 members,
+//   staged in its own slab, only if one of its rays enters the group box
+//   at an entry below that ray's least so far. Each ray keeps its least
+//   entry distance and its first index (groups and members in ascending
+//   index order, strict <, as argmin) and writes the int32 key nearest *
+//   128 + kphi * 8 + kct, or DEAD_KEY for a masked ray or one that enters
+//   no cluster (least < INF says whether it entered one). The stable sort
+//   of the keys stays torch.sort. Small casts (a few hundred rays) are
+//   latency: CTAs of 128 keep more SMs busy there.
 //
-//   sweep_runs: sweep_spans for C > SMEM_CLUSTERS. The same CTA of TILE_R
-//   rays, the same rays and boxes, and first a culled pass: each warp
+//   sweep_spans: one CTA per tile of TILE_R rays in kernel order (ray i
+//   of the tile is ray perm[i] of the inputs: the sort's gathers happen
+//   here). Thread i owns the tile's ray i. Its culled pass: each warp
 //   ballots its live rays' group tests into a flag per group; the members
-//   of the groups some warp enters are staged CHUNK at a time, each
+//   of the groups some warp enters are staged CHUNK at a time and each
 //   entering warp tests them (a warp that enters no member's group gives
-//   INF without a test), and the finite tile minima are kept in shared
-//   memory as 64-bit keys in cluster order. Those are sorted as in
-//   sweep_spans; the INF clusters follow in index order, each placed by a
-//   binary search over the finite indices. The keys hold KEYS_CAP finite
-//   minima: a tile with more takes the runs path below, found part-way; so
-//   does a tile whose entered groups, counted after each chunk's group
-//   tests, hold more than KEYS_CAP members and at least half the clusters
-//   (it would fill the keys with little culled, so it goes before its
-//   member tests). A tile whose entered groups hold fewer members leaves
-//   behind under half the clusters' tests when its keys fill. The outputs
-//   never depend on which path a tile took.
+//   INF without a test). A ray computes its entry distance to each member
+//   once: it folds it into the ray's cap and, by one redux.sync minimum
+//   over the warp, into the warp's row of minima in shared memory (every
+//   lane stores the same word: one store, no branch); the four rows'
+//   minimum is the tile minimum. Every entry distance is +0.0, positive
+//   or INF, so its bits order as unsigned integers do (cluster_tnear never
+//   gives -0.0). A masked ray gives INF; a tile with no live ray writes
+//   every entry INF with the clusters in index order and sorts nothing.
+//   The finite tile minima are kept in shared memory as 64-bit keys (the
+//   float's bits above the index) in cluster order and sorted: a tile
+//   overlaps few clusters, so the bitonic sort runs on one warp over at
+//   most 64 keys in most tiles, and the index in the low bits makes it
+//   the stable sort. The INF clusters follow in index order, each placed
+//   by a binary search over the finite indices. The keys hold KEYS_CAP
+//   finite minima: a tile with more takes the runs path below, found
+//   part-way; so does a tile whose entered groups, counted after each
+//   chunk's group tests, hold more than KEYS_CAP members and at least half
+//   the clusters (it would fill the keys with little culled, so it goes
+//   before its member tests). A tile whose entered groups hold fewer
+//   members leaves behind under half the clusters' tests when its keys
+//   fill; at C <= KEYS_CAP no tile leaves. The outputs never depend on
+//   which path a tile took.
 //
-//   sweep_runs's runs path: the clusters pass in runs of RUN_CLUSTERS, each
-//   chunk of a run tested as the culled pass tests it (a warp tests the
-//   members of the group boxes it enters and writes INF for the others);
-//   each run's warp rows, tile minima, compaction and bitonic sort are
-//   sweep_spans's, and the run is written, sorted, to a per-tile row of a
-//   (G, C) uint64 scratch in global memory (the run's finite keys, then
-//   its INF clusters in index order as keys with INF's bits), at the run's
-//   own cluster offset. The ray's cap folds across every run. Then a rank
-//   merge: every key is unique (the cluster index is its low word), so a
-//   finite key's place in the tile's list is its place in its run plus,
-//   for each other run, the count of keys below it (a binary search of
-//   that run's row, from L2); an INF cluster's place is nf + the INF
-//   clusters before it, which each run's finite count (a binary search for
-//   INF's bits) gives. Exact and stable by construction, and one CTA owns
-//   a tile, so nothing syncs across CTAs. Runs of 2,048 clusters keep the
-//   CTA at 60 KB of shared memory, three CTAs an SM. The wrapper allocates
-//   the scratch for every cast past SMEM_CLUSTERS, since whether a tile
-//   needs it shows only inside the kernel.
+//   sweep_spans's runs path: the clusters pass in runs of RUN_CLUSTERS,
+//   each chunk of a run tested as the culled pass tests it (a warp tests
+//   the members of the group boxes it enters and writes INF for the
+//   others); each run's warp rows give its tile minima, whose finite ones
+//   are compacted and sorted as above, and the run is written, sorted, to
+//   a per-tile row of a (G, C) uint64 scratch in global memory (the run's
+//   finite keys, then its INF clusters in index order as keys with INF's
+//   bits), at the run's own cluster offset. The ray's cap folds across
+//   every run. Then a rank merge: every key is unique (the cluster index
+//   is its low word), so a finite key's place in the tile's list is its
+//   place in its run plus, for each other run, the count of keys below it
+//   (a binary search of that run's row, from L2); an INF cluster's place
+//   is nf + the INF clusters before it, which each run's finite count (a
+//   binary search for INF's bits) gives. Exact and stable by
+//   construction, and one CTA owns a tile, so nothing syncs across CTAs.
+//   Runs of 2,048 clusters keep the CTA at 60 KB of shared memory, three
+//   CTAs an SM. The wrapper allocates the scratch for every cast, since
+//   whether a tile needs it shows only inside the kernel.
 //
-// Tracing (utils/timing.py): a non-null `live_rays` makes sweep_spans and
-// sweep_runs count the tile's rays that are masked on and enter at least
-// one cluster box (a finite farthest entry: the rays whose key is not
-// DEAD_KEY), by one barrier count and one atomicAdd per CTA; null (tracing
-// off) costs one uniform branch. A non-null `pairs_tested` makes the two
-// culled kernels add the (ray, cluster) member slab tests their warps make
+// Tracing (utils/timing.py): a non-null `live_rays` makes sweep_spans
+// count the tile's rays that are masked on and enter at least one cluster
+// box (a finite farthest entry: the rays whose key is not DEAD_KEY), by
+// one barrier count and one atomicAdd per CTA; null (tracing off) costs
+// one uniform branch. A non-null `pairs_tested` makes sweep_key and
+// sweep_spans add the (ray, cluster) member slab tests their warps make
 // (32 lanes, each with its KEY_RAYS or one ray, times the members of each
-// group a warp tests, in either of sweep_runs's paths), one atomicAdd per
-// CTA; group tests are not counted.
+// group a warp tests, in either of sweep_spans's paths), one atomicAdd
+// per CTA; group tests are not counted.
 //
 // Exactness: every step rounds as the eager torch version does on the
 // card. No fast math (utils/nvcc.py passes none): 1 / d is IEEE division,
@@ -136,8 +126,7 @@ constexpr int KEY_THREADS = 128;      // sweep_key's threads per CTA
 constexpr int KEY_RAYS = 2;           // sweep_key's rays per thread
 constexpr int TILE_R = 128;           // rays per tile: ops/sweep.py TILE_R
 constexpr int WARPS = TILE_R / 32;
-constexpr int SMEM_CLUSTERS = 8192;   // ops/sweep.py SMEM_CLUSTERS
-constexpr int RUN_CLUSTERS = 2048;    // sweep_runs's clusters a run
+constexpr int RUN_CLUSTERS = 2048;    // the runs path's clusters a run
 constexpr int N_FEAT = 16;            // ray feature row [o, d, o x d, 1, 0]
 constexpr int BEST_W = 8;             // record [t, slot, inside, cap, anyhit]
 constexpr float INF = 114514.0f;      // ops/intersect.py INF
@@ -148,7 +137,7 @@ constexpr unsigned FULL = 0xffffffffu;
 constexpr int WARP_SORT = 64;         // most keys a warp sorts alone
 constexpr int GROUP = 32;             // clusters a group box covers
 constexpr int GROUP_THREADS = 256;    // sweep_groups's threads per CTA
-constexpr int KEYS_CAP = 4096;        // finite tile minima sweep_runs's
+constexpr int KEYS_CAP = 4096;        // finite tile minima sweep_spans's
                                       // culled pass holds
 // 0.5 / pi as the float torch multiplies by (a Python float scalar)
 constexpr float PHI_SCALE = static_cast<float>(0.5 / 3.14159265358979323846);
@@ -161,25 +150,21 @@ template <int N>
 struct BoxArrays { float v[6][N]; };
 using Boxes = BoxArrays<CHUNK>;   // a chunk of boxes
 using Slab = BoxArrays<GROUP>;    // one group's members
-// sweep_spans at SMEM_CLUSTERS: its keys and rows, its boxes and counts
-static_assert(SMEM_CLUSTERS * (8 + 4 * WARPS) + sizeof(Boxes) + 4 * WARPS
-                  <= 232448,
-              "sweep_spans's shared memory exceeds the 227 KB a CTA may use");
-// a power of two, so a run's keys sort in RUN_CLUSTERS slots; a run fits
-// in sweep_spans's budget
-static_assert(RUN_CLUSTERS <= SMEM_CLUSTERS &&
-                  (RUN_CLUSTERS & (RUN_CLUSTERS - 1)) == 0,
-              "RUN_CLUSTERS must be a power of two <= SMEM_CLUSTERS");
+// sweep_spans's dynamic shared memory: a run's keys and warp rows
+constexpr int SPANS_SMEM = RUN_CLUSTERS * (8 + 4 * WARPS);
+// a power of two, so a run's keys sort in RUN_CLUSTERS slots
+static_assert((RUN_CLUSTERS & (RUN_CLUSTERS - 1)) == 0,
+              "RUN_CLUSTERS must be a power of two");
 // a group is one warp's lanes; a batch of entered groups' members fills a
 // chunk; the culled pass's keys, rows, flags and lists (and, after it, the
-// finite indices) fit in sweep_runs's dynamic shared memory
+// finite indices) fit in sweep_spans's dynamic shared memory
 static_assert(GROUP == 32 && CHUNK % GROUP == 0 && WARPS == 4,
               "a group is a warp's 32 lanes; a flag word holds 4 warps");
 static_assert(KEYS_CAP * 8 + WARPS * CHUNK * 4 + CHUNK * WARPS + CHUNK * 4
-                      <= RUN_CLUSTERS * (8 + 4 * WARPS) &&
-                  KEYS_CAP * (8 + 4) <= RUN_CLUSTERS * (8 + 4 * WARPS) &&
+                      <= SPANS_SMEM &&
+                  KEYS_CAP * (8 + 4) <= SPANS_SMEM &&
                   (KEYS_CAP & (KEYS_CAP - 1)) == 0,
-              "sweep_runs's culled pass exceeds its dynamic shared memory");
+              "sweep_spans's culled pass exceeds its dynamic shared memory");
 // the least key of an INF minimum: every finite minimum's key is below it
 constexpr unsigned long long INF_KEY =
     static_cast<unsigned long long>(INF_BITS) << 32;
@@ -297,54 +282,6 @@ __device__ __forceinline__ int ray_key(const float* d, bool live,
   return nearest * 128 + kphi * 8 + kct;
 }
 
-__global__ void __launch_bounds__(KEY_THREADS)
-sweep_key_kernel(const float* __restrict__ origin,
-                 const float* __restrict__ direction,
-                 const bool* __restrict__ mask,
-                 const float* __restrict__ cl_min,
-                 const float* __restrict__ cl_max, int* __restrict__ key,
-                 int n_rays, int n_clusters) {
-  __shared__ __align__(16) Boxes boxes;
-  const long long first =
-      static_cast<long long>(blockIdx.x) * KEY_THREADS * KEY_RAYS +
-      threadIdx.x;
-  Ray ray[KEY_RAYS];
-  bool live[KEY_RAYS];
-  float least[KEY_RAYS];
-  int nearest[KEY_RAYS];
-  const bool warp_live = __any_sync(
-      FULL, key_rays(origin, direction, mask, first, n_rays, ray, live,
-                     least, nearest));
-  for (int lo = 0; lo < n_clusters; lo += CHUNK) {
-    const int n = min(CHUNK, n_clusters - lo);
-    __syncthreads();   // the previous chunk is read
-    stage_boxes(cl_min, cl_max, lo, n, boxes);
-    __syncthreads();
-    if (!warp_live) continue;
-    for_each_box(boxes, n, [&](int k, const Box& b) {
-#pragma unroll
-      for (int q = 0; q < KEY_RAYS; ++q) {
-        float t0, t1;
-        slabs(b, ray[q], t0, t1);
-        const float e = __uint_as_float(entry_bits(t0));
-        // strict: the first least index, as argmin. A miss (INF) never
-        // lowers least, which starts at INF, so e < least also holds
-        // enters()'s test t0 <= INF.
-        if (t1 >= t0 && t1 > 0.0f && e < least[q]) {
-          least[q] = e;
-          nearest[q] = lo + k;
-        }
-      }
-    });
-  }
-#pragma unroll
-  for (int q = 0; q < KEY_RAYS; ++q) {
-    const long long i = first + q * KEY_THREADS;
-    if (i < n_rays) key[i] = ray_key(direction + 3 * i, live[q], least[q],
-                                     nearest[q]);
-  }
-}
-
 // One box per GROUP consecutive clusters: g_min / g_max (G, 3) the exact
 // elementwise min / max of the members' cl_min / cl_max, a warp a group,
 // a lane a member (no rounding: fminf / fmaxf return an operand).
@@ -428,18 +365,18 @@ __device__ __forceinline__ void count_pairs(unsigned long long* counter,
   }
 }
 
-// sweep_key_kernel for C > SMEM_CLUSTERS, culled by the group boxes g_min /
-// g_max; the same keys.
+// The key of each ray, its slab tests culled by the group boxes g_min /
+// g_max.
 __global__ void __launch_bounds__(KEY_THREADS)
-sweep_key_kernel_culled(const float* __restrict__ origin,
-                        const float* __restrict__ direction,
-                        const bool* __restrict__ mask,
-                        const float* __restrict__ cl_min,
-                        const float* __restrict__ cl_max,
-                        const float* __restrict__ g_min,
-                        const float* __restrict__ g_max,
-                        int* __restrict__ key, int n_rays, int n_clusters,
-                        unsigned long long* __restrict__ pairs_tested) {
+sweep_key_kernel(const float* __restrict__ origin,
+                 const float* __restrict__ direction,
+                 const bool* __restrict__ mask,
+                 const float* __restrict__ cl_min,
+                 const float* __restrict__ cl_max,
+                 const float* __restrict__ g_min,
+                 const float* __restrict__ g_max, int* __restrict__ key,
+                 int n_rays, int n_clusters,
+                 unsigned long long* __restrict__ pairs_tested) {
   __shared__ __align__(16) Boxes groups;
   __shared__ __align__(16) Slab slabs_of[KEY_THREADS / 32];
   const int lane = threadIdx.x & 31;
@@ -482,7 +419,10 @@ sweep_key_kernel_culled(const float* __restrict__ origin,
           float t0, t1;
           slabs(b, ray[q], t0, t1);
           const float e = __uint_as_float(entry_bits(t0));
-          if (t1 >= t0 && t1 > 0.0f && e < least[q]) {   // as sweep_key
+          // strict: the first least index, as argmin. A miss (INF) never
+          // lowers least, which starts at INF, so e < least also holds
+          // enters()'s test t0 <= INF.
+          if (t1 >= t0 && t1 > 0.0f && e < least[q]) {
             least[q] = e;
             nearest[q] = static_cast<int>(m0) + j;
           }
@@ -529,141 +469,6 @@ __device__ __forceinline__ void bitonic(unsigned long long* keys, int n,
   }
 }
 
-__global__ void __launch_bounds__(TILE_R)
-sweep_spans_kernel(const float* __restrict__ origin,
-                   const float* __restrict__ direction,
-                   const bool* __restrict__ mask,
-                   const bool* __restrict__ anyhit,
-                   const long long* __restrict__ perm,
-                   const float* __restrict__ cl_min,
-                   const float* __restrict__ cl_max, int n_clusters,
-                   int n_keys, int* __restrict__ nspan,
-                   int* __restrict__ spans, float* __restrict__ tile_sorted,
-                   float* __restrict__ rayfeat, float* __restrict__ best,
-                   unsigned long long* __restrict__ live_rays) {
-  // keys: n_keys (a power of two >= C); rows: each warp's C minima (float
-  // bits); the first row then holds the tile minima (tmin) and in place
-  // the clusters whose minimum is INF, in index order
-  extern __shared__ __align__(16) unsigned long long keys[];
-  unsigned* rows = reinterpret_cast<unsigned*>(keys + n_keys);
-  unsigned* tmin = rows;
-  __shared__ __align__(16) Boxes boxes;
-  __shared__ int warp_count[WARPS];
-  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
-  const int c = n_clusters;
-  const long long row = static_cast<long long>(blockIdx.x) * TILE_R + t;
-  const long long src = perm != nullptr ? perm[row] : row;
-  const float o[3] = {origin[3 * src], origin[3 * src + 1],
-                      origin[3 * src + 2]};
-  const float d[3] = {direction[3 * src], direction[3 * src + 1],
-                      direction[3 * src + 2]};
-  const bool live = mask[src];
-  const Ray ray = make_ray(o, d);
-
-  float4* feat = reinterpret_cast<float4*>(rayfeat + row * N_FEAT);
-  feat[0] = make_float4(o[0], o[1], o[2], d[0]);
-  feat[1] = make_float4(d[1], d[2],
-                        __fmaf_rn(o[1], d[2], -__fmul_rn(o[2], d[1])),
-                        __fmaf_rn(o[2], d[0], -__fmul_rn(o[0], d[2])));
-  feat[2] = make_float4(__fmaf_rn(o[0], d[1], -__fmul_rn(o[1], d[0])), 1.0f,
-                        0.0f, 0.0f);
-  feat[3] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-
-  const long long base = static_cast<long long>(blockIdx.x) * c;
-  int far_bits = -1;   // the ray's farthest finite entry distance; -1: none
-  if (!__syncthreads_or(live)) {
-    // no live ray: every tile minimum is INF, in index order
-    for (int k = t; k < c; k += TILE_R) {
-      spans[base + k] = k;
-      tile_sorted[base + k] = INF;
-    }
-    if (t == 0) nspan[blockIdx.x] = 0;
-  } else {
-    const bool warp_live = __any_sync(FULL, live);
-    unsigned* row = rows + warp * c;
-    if (!warp_live)
-      for (int k = lane; k < c; k += 32) row[k] = INF_BITS;
-    for (int lo = 0; lo < c; lo += CHUNK) {
-      const int n = min(CHUNK, c - lo);
-      __syncthreads();   // the previous chunk is read
-      stage_boxes(cl_min, cl_max, lo, n, boxes);
-      __syncthreads();
-      if (!warp_live) continue;
-      for_each_box(boxes, n, [&](int k, const Box& b) {
-        float t0, t1;
-        slabs(b, ray, t0, t1);
-        const unsigned e =
-            live && enters(t0, t1) ? entry_bits(t0) : INF_BITS;
-        if (e < INF_BITS) far_bits = max(far_bits, static_cast<int>(e));
-        row[lo + k] = __reduce_min_sync(FULL, e);   // every lane, one word
-      });
-    }
-    __syncthreads();
-    for (int k = t; k < c; k += TILE_R) {
-      unsigned v = rows[k];
-#pragma unroll
-      for (int w = 1; w < WARPS; ++w) v = min(v, rows[w * c + k]);
-      tmin[k] = v;
-    }
-    __syncthreads();
-
-    // compact the finite minima into keys and the rest into tmin, both in
-    // index order, 128 clusters at a time
-    int nf = 0;   // finite minima so far
-    for (int lo = 0; lo < c; lo += TILE_R) {
-      const int k = lo + t;
-      const unsigned v = k < c ? tmin[k] : INF_BITS;
-      const bool fin = v < INF_BITS;
-      const unsigned ballot = __ballot_sync(FULL, fin);
-      if (lane == 0) warp_count[warp] = __popc(ballot);
-      __syncthreads();   // tmin[lo, lo + 128) is read
-      int before = nf + __popc(ballot & ((1u << lane) - 1u)), total = 0;
-#pragma unroll
-      for (int w = 0; w < WARPS; ++w) {
-        const int n_w = warp_count[w];
-        before += w < warp ? n_w : 0;
-        total += n_w;
-      }
-      if (fin)
-        keys[before] = (static_cast<unsigned long long>(v) << 32) |
-                       static_cast<unsigned>(k);
-      else if (k < c)
-        tmin[k - before] = static_cast<unsigned>(k);   // k - before <= k
-      nf += total;
-      __syncthreads();   // warp_count is read
-    }
-    int n_sort = 1;
-    while (n_sort < nf) n_sort <<= 1;
-    for (int j = nf + t; j < n_sort; j += TILE_R) keys[j] = ~0ULL;
-    __syncthreads();
-    if (n_sort > WARP_SORT) {
-      bitonic(keys, n_sort, t, TILE_R, true);
-    } else if (n_sort > 1 && warp == 0) {
-      bitonic(keys, n_sort, lane, 32, false);
-    }
-    __syncthreads();
-
-    for (int k = t; k < c; k += TILE_R) {
-      if (k < nf) {
-        const unsigned long long kv = keys[k];
-        spans[base + k] = static_cast<int>(kv & 0xffffffffULL);
-        tile_sorted[base + k] =
-            __uint_as_float(static_cast<unsigned>(kv >> 32));
-      } else {
-        spans[base + k] = static_cast<int>(tmin[k - nf]);
-        tile_sorted[base + k] = INF;
-      }
-    }
-    if (t == 0) nspan[blockIdx.x] = nf;
-  }
-
-  if (live_rays != nullptr) count_live(live_rays, far_bits >= 0);
-  const float far = far_bits < 0 ? -INF : __int_as_float(far_bits);
-  float4* rec = reinterpret_cast<float4*>(best + row * BEST_W);
-  rec[0] = make_float4(live ? INF : -INF, -1.0f, 0.0f, nextafterf(far, INF));
-  rec[1] = make_float4(anyhit[src] ? 1.0f : 0.0f, 0.0f, 0.0f, 0.0f);
-}
-
 // The count of a[0, n) below x, a ascending (read through L2: the CTA
 // wrote the row in this launch).
 __device__ __forceinline__ int count_below(const unsigned long long* a,
@@ -707,7 +512,7 @@ __device__ __forceinline__ Box group_box(const float* __restrict__ g_min,
   return Box{l[0], l[1], l[2], h[0], h[1], h[2]};
 }
 
-// sweep_runs's runs path for a tile with a live ray: each run of
+// sweep_spans's runs path for a tile with a live ray: each run of
 // RUN_CLUSTERS, its members tested where the warp enters their group box,
 // sorted into the tile's row of the (G, C) scratch `runs`, then the rank
 // merge into spans / tile_sorted. Folds each ray's entries into far_bits,
@@ -843,7 +648,7 @@ __device__ __forceinline__ int count_upto(const int* a, int n, int x) {
   return lo;
 }
 
-// sweep_runs's culled pass for a tile with a live ray: the tile's finite
+// sweep_spans's culled pass for a tile with a live ray: the tile's finite
 // minima as keys (the float's bits above the cluster's index) into
 // keys[0, nf), in cluster order, from the members of the groups some warp
 // enters. Folds each ray's entries into far_bits and adds the members each
@@ -967,21 +772,21 @@ __device__ int culled_minima(const Ray& ray, bool live, bool warp_live,
 }
 
 __global__ void __launch_bounds__(TILE_R)
-sweep_runs_kernel(const float* __restrict__ origin,
-                  const float* __restrict__ direction,
-                  const bool* __restrict__ mask,
-                  const bool* __restrict__ anyhit,
-                  const long long* __restrict__ perm,
-                  const float* __restrict__ cl_min,
-                  const float* __restrict__ cl_max,
-                  const float* __restrict__ g_min,
-                  const float* __restrict__ g_max, int n_clusters,
-                  int* __restrict__ nspan, int* __restrict__ spans,
-                  float* __restrict__ tile_sorted,
-                  float* __restrict__ rayfeat, float* __restrict__ best,
-                  unsigned long long* runs,
-                  unsigned long long* __restrict__ live_rays,
-                  unsigned long long* __restrict__ pairs_tested) {
+sweep_spans_kernel(const float* __restrict__ origin,
+                   const float* __restrict__ direction,
+                   const bool* __restrict__ mask,
+                   const bool* __restrict__ anyhit,
+                   const long long* __restrict__ perm,
+                   const float* __restrict__ cl_min,
+                   const float* __restrict__ cl_max,
+                   const float* __restrict__ g_min,
+                   const float* __restrict__ g_max, int n_clusters,
+                   int* __restrict__ nspan, int* __restrict__ spans,
+                   float* __restrict__ tile_sorted,
+                   float* __restrict__ rayfeat, float* __restrict__ best,
+                   unsigned long long* runs,
+                   unsigned long long* __restrict__ live_rays,
+                   unsigned long long* __restrict__ pairs_tested) {
   extern __shared__ __align__(16) unsigned long long keys[];
   __shared__ __align__(16) Boxes boxes;
   __shared__ int warp_count[WARPS];
@@ -1066,33 +871,20 @@ sweep_runs_kernel(const float* __restrict__ origin,
   rec[1] = make_float4(anyhit[src] ? 1.0f : 0.0f, 0.0f, 0.0f, 0.0f);
 }
 
-int pow2_at_least(int n) {
-  int p = 1;
-  while (p < n) p <<= 1;
-  return p;
-}
+// sweep_spans's opt-in to its dynamic shared memory, set at its first
+// launch
+bool smem_set = false;
 
-size_t spans_smem(int n_clusters) {
-  return pow2_at_least(n_clusters) * sizeof(unsigned long long) +
-         WARPS * n_clusters * sizeof(unsigned);
-}
-
-// each kernel's opt-in to its dynamic shared memory, set at its first launch
-bool spans_smem_set = false;   // sweep_spans may take SMEM_CLUSTERS
-bool runs_smem_set = false;    // sweep_runs may take spans_smem(RUN_CLUSTERS)
-
-// Raise `kernel`'s dynamic shared memory limit to `bytes` once (`set`).
-template <class K>
-cudaError_t allow_smem(K kernel, size_t bytes, bool& set) {
-  if (set) return cudaSuccess;
+cudaError_t allow_smem() {
+  if (smem_set) return cudaSuccess;
   const cudaError_t rc = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(bytes));
+      sweep_spans_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      SPANS_SMEM);
   if (rc != cudaSuccess) {
     cudaGetLastError();
     return rc;
   }
-  set = true;
+  smem_set = true;
   return cudaSuccess;
 }
 
@@ -1100,11 +892,7 @@ cudaError_t allow_smem(K kernel, size_t bytes, bool& set) {
 
 extern "C" int sweep_prep_tile_rays() { return TILE_R; }
 
-// The most clusters sweep_spans holds in shared memory; above it the
-// sorted runs of sweep_runs.
-extern "C" int sweep_prep_smem_clusters() { return SMEM_CLUSTERS; }
-
-// The clusters a group box covers past SMEM_CLUSTERS.
+// The clusters a group box covers.
 extern "C" int sweep_prep_group() { return GROUP; }
 
 // cl_min, cl_max (C, 3) f32, C >= 1 -> groups (2, G, 3) f32, G = ceil(C /
@@ -1122,12 +910,11 @@ extern "C" int sweep_groups_launch(const float* cl_min, const float* cl_max,
   return static_cast<int>(cudaGetLastError());
 }
 
-// origin, direction (R, 3) f32; mask (R,) bool; cl_min, cl_max (C, 3) f32;
-// groups: null for C <= SMEM_CLUSTERS, else sweep_groups's (2, G, 3)
-// boxes of these clusters -> key (R,) int32. pairs_tested: null, or a
-// uint64 counter of the culled kernel's member slab tests (unused at C <=
-// SMEM_CLUSTERS). Launches on `stream` and returns the CUDA error of the
-// launch (0: none).
+// origin, direction (R, 3) f32; mask (R,) bool; cl_min, cl_max (C, 3) f32,
+// C >= 1; groups: sweep_groups's (2, G, 3) boxes of these clusters -> key
+// (R,) int32. pairs_tested: null, or a uint64 counter of the member slab
+// tests. Launches on `stream` and returns the CUDA error of the launch (0:
+// none).
 extern "C" int sweep_key_launch(const float* origin, const float* direction,
                                 const bool* mask, const float* cl_min,
                                 const float* cl_max, const float* groups,
@@ -1135,35 +922,27 @@ extern "C" int sweep_key_launch(const float* origin, const float* direction,
                                 unsigned long long* pairs_tested,
                                 void* stream) {
   if (n_rays <= 0) return static_cast<int>(cudaGetLastError());
-  if (n_clusters > SMEM_CLUSTERS && groups == nullptr)
+  if (n_clusters < 1 || groups == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   constexpr int per_cta = KEY_THREADS * KEY_RAYS;
-  const int ctas = (n_rays + per_cta - 1) / per_cta;
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (n_clusters > SMEM_CLUSTERS) {
-    const long long n_groups = (n_clusters + GROUP - 1) / GROUP;
-    sweep_key_kernel_culled<<<ctas, KEY_THREADS, 0, st>>>(
-        origin, direction, mask, cl_min, cl_max, groups,
-        groups + 3 * n_groups, key, n_rays, n_clusters, pairs_tested);
-    return static_cast<int>(cudaGetLastError());
-  }
-  sweep_key_kernel<<<ctas, KEY_THREADS, 0, st>>>(
-      origin, direction, mask, cl_min, cl_max, key, n_rays, n_clusters);
+  const long long n_groups = (n_clusters + GROUP - 1) / GROUP;
+  sweep_key_kernel<<<(n_rays + per_cta - 1) / per_cta, KEY_THREADS, 0,
+                     static_cast<cudaStream_t>(stream)>>>(
+      origin, direction, mask, cl_min, cl_max, groups, groups + 3 * n_groups,
+      key, n_rays, n_clusters, pairs_tested);
   return static_cast<int>(cudaGetLastError());
 }
 
 // origin, direction (R, 3) f32, mask, anyhit (R,) bool, perm (R,) int64 or
 // null (kernel order = input order), R = n_tiles * TILE_R; cl_min, cl_max
-// (C, 3) f32, C >= 1 -> nspan (G,) i32, spans (G, C) i32, tile_sorted
-// (G, C) f32, rayfeat (R, 16) f32, best (R, 8) f32, the last two 16-byte
-// aligned. C <= SMEM_CLUSTERS launches sweep_spans (groups, runs and
-// pairs_tested unused, may be null); a larger C launches sweep_runs,
-// which takes sweep_groups's (2, ceil(C / GROUP), 3) boxes of these
-// clusters and the (G, C) uint64 scratch `runs` of its runs path.
-// live_rays: null, or a uint64 counter of the rays that are masked on and
-// enter some cluster; pairs_tested: null, or a uint64 counter of
-// sweep_runs's member slab tests. Launches on `stream` and returns the first CUDA error (0:
-// launched).
+// (C, 3) f32, C >= 1; groups: sweep_groups's (2, G, 3) boxes of these
+// clusters; runs: the (n_tiles, C) uint64 scratch of the runs path ->
+// nspan (n_tiles,) i32, spans (n_tiles, C) i32, tile_sorted (n_tiles, C)
+// f32, rayfeat (R, 16) f32, best (R, 8) f32, the last two 16-byte
+// aligned. live_rays: null, or a uint64 counter of the rays that are
+// masked on and enter some cluster; pairs_tested: null, or a uint64
+// counter of the member slab tests. Launches on `stream` and returns the
+// first CUDA error (0: launched).
 extern "C" int sweep_spans_launch(const float* origin, const float* direction,
                                   const bool* mask, const bool* anyhit,
                                   const long long* perm, const float* cl_min,
@@ -1176,27 +955,15 @@ extern "C" int sweep_spans_launch(const float* origin, const float* direction,
                                   unsigned long long* pairs_tested,
                                   void* stream) {
   if (n_tiles <= 0) return static_cast<int>(cudaGetLastError());
-  if (n_clusters < 1 || (n_clusters > SMEM_CLUSTERS &&
-                         (runs == nullptr || groups == nullptr)))
+  if (n_clusters < 1 || groups == nullptr || runs == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (n_clusters > SMEM_CLUSTERS) {
-    const size_t smem = spans_smem(RUN_CLUSTERS);
-    const cudaError_t rc = allow_smem(sweep_runs_kernel, smem, runs_smem_set);
-    if (rc != cudaSuccess) return static_cast<int>(rc);
-    const long long n_groups = (n_clusters + GROUP - 1) / GROUP;
-    sweep_runs_kernel<<<n_tiles, TILE_R, smem, st>>>(
-        origin, direction, mask, anyhit, perm, cl_min, cl_max, groups,
-        groups + 3 * n_groups, n_clusters, nspan, spans, tile_sorted,
-        rayfeat, best, runs, live_rays, pairs_tested);
-    return static_cast<int>(cudaGetLastError());
-  }
-  const cudaError_t rc = allow_smem(
-      sweep_spans_kernel, spans_smem(SMEM_CLUSTERS), spans_smem_set);
+  const cudaError_t rc = allow_smem();
   if (rc != cudaSuccess) return static_cast<int>(rc);
-  sweep_spans_kernel<<<n_tiles, TILE_R, spans_smem(n_clusters), st>>>(
-      origin, direction, mask, anyhit, perm, cl_min, cl_max, n_clusters,
-      pow2_at_least(n_clusters), nspan, spans, tile_sorted, rayfeat, best,
-      live_rays);
+  const long long n_groups = (n_clusters + GROUP - 1) / GROUP;
+  sweep_spans_kernel<<<n_tiles, TILE_R, SPANS_SMEM,
+                       static_cast<cudaStream_t>(stream)>>>(
+      origin, direction, mask, anyhit, perm, cl_min, cl_max, groups,
+      groups + 3 * n_groups, n_clusters, nspan, spans, tile_sorted, rayfeat,
+      best, runs, live_rays, pairs_tested);
   return static_cast<int>(cudaGetLastError());
 }

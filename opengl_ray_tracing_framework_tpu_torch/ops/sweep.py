@@ -9,10 +9,9 @@ the forward render (the primary cast and each bounce's merged NEE-shadow
     1. slab test of every ray against every cluster AABB (cluster_tnear),
        consumed only through per-ray and per-tile reductions, so the
        (rays, clusters) matrix never exists whole (the plain versions take
-       it in chunks of rays); past SMEM_CLUSTERS clusters the kernels
-       test a cluster only for rays that enter its group box (group_boxes:
-       CULL_GROUP consecutive clusters, a BVH neighbourhood), which gives
-       the same values;
+       it in chunks of rays); the kernels test a cluster only for rays
+       that enter its group box (group_boxes: CULL_GROUP consecutive
+       clusters, a BVH neighbourhood), which gives the same values;
     2. a stable coherence sort of the rays (sweep_key, then torch.sort):
        rays that trace nothing (masked off, or overlapping no cluster) go
        last, live rays group by (nearest candidate cluster, quantized
@@ -57,12 +56,8 @@ BEST_W = 8            # record [t, slot, inside, cap, anyhit, 0, 0, 0]
 EPS_ROW = 10          # trifeat row carrying E in the A-group columns
 MAX_BLOCK_TRIS = 4096  # widest cluster block the kernels take (a 12-bit
                        # lane in their keys); csrc/mt_span.cuh agrees
-SMEM_CLUSTERS = 8192  # most clusters whose tile minima and keys
-                      # sweep_spans holds in shared memory (more take
-                      # sorted runs in global scratch);
+CULL_GROUP = 32       # consecutive clusters a group box covers;
                       # csrc/sweep_prep.cu agrees
-CULL_GROUP = 32       # consecutive clusters a group box covers past
-                      # SMEM_CLUSTERS; csrc/sweep_prep.cu agrees
 _DEAD_KEY = 1 << 30   # sort key for rays that trace nothing
 _SLAB_CHUNK = 128 * TILE_R   # rays per slab-test chunk
 
@@ -372,8 +367,7 @@ def group_boxes_plain(cl_min, cl_max):
 
 def _declare_prep(lib):
     """Declare the C signatures of a loaded csrc/sweep_prep.cu."""
-    for name in ("sweep_prep_tile_rays", "sweep_prep_smem_clusters",
-                 "sweep_prep_group"):
+    for name in ("sweep_prep_tile_rays", "sweep_prep_group"):
         getattr(lib, name).argtypes = []
         getattr(lib, name).restype = ctypes.c_int
     lib.sweep_groups_launch.argtypes = ([ctypes.c_void_p] * 3
@@ -387,9 +381,7 @@ def _declare_prep(lib):
                                        + [ctypes.c_int] * 2
                                        + [ctypes.c_void_p] * 3)
     lib.sweep_spans_launch.restype = ctypes.c_int
-    for name, want in (("tile_rays", TILE_R),
-                       ("smem_clusters", SMEM_CLUSTERS),
-                       ("group", CULL_GROUP)):
+    for name, want in (("tile_rays", TILE_R), ("group", CULL_GROUP)):
         if getattr(lib, f"sweep_prep_{name}")() != want:
             raise RuntimeError(f"csrc/sweep_prep.cu {name.upper()} differs "
                                "from ops/sweep.py")
@@ -400,6 +392,8 @@ def _check_prep(fn, dev, tensors):
     """Raise ValueError unless every (name, tensor, dtype, shape) is a
     contiguous tensor of that type and shape on dev."""
     for name, x, dtype, shape in tensors:
+        if not isinstance(x, torch.Tensor):
+            raise ValueError(f"{fn}: {name} must be a tensor; got {x!r}")
         if (x.device != dev or x.dtype != dtype
                 or tuple(x.shape) != tuple(shape) or not x.is_contiguous()):
             raise ValueError(
@@ -452,31 +446,16 @@ def group_boxes(cl_min, cl_max):
 group_boxes.launches = 0
 
 
-def _culled_groups(fn, dev, cl_min, cl_max, groups=None):
-    """The group boxes a preparation kernel takes past SMEM_CLUSTERS
-    clusters (`groups`, checked, when the caller has them; else
-    group_boxes), else None (the kernels below it test every pair)."""
-    c = cl_min.shape[0]
-    if c <= SMEM_CLUSTERS:
-        return None
-    if groups is None:
-        return group_boxes(cl_min, cl_max)
-    _check_prep(fn, dev, (("groups", groups, torch.float32,
-                           (2, -(-c // CULL_GROUP), 3)),))
-    return groups
-
-
-def sweep_key(origin, direction, mask, cl_min, cl_max, groups=None):
+def sweep_key(origin, direction, mask, cl_min, cl_max, groups):
     """The coherence key of each ray: csrc/sweep_prep.cu's sweep_key on a
-    CUDA tensor (any cluster count: it stages the boxes in chunks; past
-    SMEM_CLUSTERS sweep_key_kernel_culled, after group_boxes),
+    CUDA tensor (any cluster count: it stages the group boxes in chunks),
     sweep_key_plain on a CPU tensor; the same (R,) int32 values, which
     hold nearest * 128 + 127 for up to 2^24 clusters, as JAX's _sort_key.
-    `groups`: group_boxes(cl_min, cl_max) where the caller has them (one
-    cast's two kernels share them), else made here past SMEM_CLUSTERS.
-    `sweep_key.launches` counts key kernel launches. While
-    utils/timing.py's tracing is on, the culled kernel adds its member
-    slab tests to the device counter k1a_pairs_tested."""
+    `groups`: group_boxes(cl_min, cl_max), which the kernel culls its slab
+    tests with (one cast's two kernels share them; the plain version does
+    not read them). `sweep_key.launches` counts kernel launches. While
+    utils/timing.py's tracing is on, the kernel adds its member slab tests
+    to the device counter k1a_pairs_tested."""
     dev = _prep_device("sweep_key", origin, cl_min)
     if dev.type == "cpu":
         return sweep_key_plain(origin, direction, mask, cl_min, cl_max)
@@ -486,14 +465,14 @@ def sweep_key(origin, direction, mask, cl_min, cl_max, groups=None):
         ("direction", direction, torch.float32, (r, 3)),
         ("mask", mask, torch.bool, (r,)),
         ("cl_min", cl_min, torch.float32, (c, 3)),
-        ("cl_max", cl_max, torch.float32, (c, 3))))
-    groups = _culled_groups("sweep_key", dev, cl_min, cl_max, groups)
+        ("cl_max", cl_max, torch.float32, (c, 3)),
+        ("groups", groups, torch.float32, (2, -(-c // CULL_GROUP), 3))))
     key = torch.empty(r, dtype=torch.int32, device=dev)
     lib = nvcc.load("sweep_prep")
     _launch_prep("sweep_key", dev, lambda stream: lib.sweep_key_launch(
         origin.data_ptr(), direction.data_ptr(), mask.data_ptr(),
-        cl_min.data_ptr(), cl_max.data_ptr(),
-        None if groups is None else groups.data_ptr(), key.data_ptr(), r, c,
+        cl_min.data_ptr(), cl_max.data_ptr(), groups.data_ptr(),
+        key.data_ptr(), r, c,
         timing.device_counter("k1a_pairs_tested", dev), stream))
     sweep_key.launches += 1
     return key
@@ -503,19 +482,17 @@ sweep_key.launches = 0
 
 
 def sweep_spans(origin, direction, mask, anyhit, perm, cl_min, cl_max,
-                groups=None):
+                groups):
     """Span lists, ray features and records of rays in kernel order:
-    csrc/sweep_prep.cu on a CUDA tensor (sweep_spans for up to
-    SMEM_CLUSTERS clusters, its tile minima in shared memory; sweep_runs
-    above, with the group boxes as sweep_key takes them: the members of
-    entered group boxes, and a tile whose entered groups outgrow shared
+    csrc/sweep_prep.cu's sweep_spans on a CUDA tensor (the members of the
+    group boxes `groups` that a tile's rays enter, as sweep_key takes
+    them; a tile whose finite minima or entered groups outgrow shared
     memory through sorted runs in a (G, C) 64-bit scratch allocated here
-    for every such cast), sweep_spans_plain on a CPU tensor; same contract
-    and values. `sweep_spans.launches` counts these
-    kernels' launches. While utils/timing.py's tracing is on, either
-    kernel adds the rays that are masked on and enter some cluster to the
-    device counter cast_live_rays, and sweep_runs its member slab tests to
-    k1a_pairs_tested."""
+    for every cast), sweep_spans_plain on a CPU tensor; same contract and
+    values. `sweep_spans.launches` counts kernel launches. While
+    utils/timing.py's tracing is on, the kernel adds the rays that are
+    masked on and enter some cluster to the device counter cast_live_rays,
+    and its member slab tests to k1a_pairs_tested."""
     dev = _prep_device("sweep_spans", origin, cl_min)
     if dev.type == "cpu":
         return sweep_spans_plain(origin, direction, mask, anyhit, perm,
@@ -532,24 +509,22 @@ def sweep_spans(origin, direction, mask, anyhit, perm, cl_min, cl_max,
         ("anyhit", anyhit, torch.bool, (r,)),
         *((("perm", perm, torch.int64, (r,)),) if perm is not None else ()),
         ("cl_min", cl_min, torch.float32, (c, 3)),
-        ("cl_max", cl_max, torch.float32, (c, 3))))
+        ("cl_max", cl_max, torch.float32, (c, 3)),
+        ("groups", groups, torch.float32, (2, -(-c // CULL_GROUP), 3))))
     nspan = torch.empty(g, dtype=torch.int32, device=dev)
     spans = torch.empty((g, c), dtype=torch.int32, device=dev)
     tile_sorted = torch.empty((g, c), dtype=torch.float32, device=dev)
     rayfeat = torch.empty((r, N_FEAT), dtype=torch.float32, device=dev)
     best = torch.empty((r, BEST_W), dtype=torch.float32, device=dev)
-    groups = _culled_groups("sweep_spans", dev, cl_min, cl_max, groups)
-    # the sorted runs of sweep_runs's runs path, uint64 keys held as int64
-    runs = (torch.empty((g, c), dtype=torch.int64, device=dev)
-            if groups is not None else None)
+    # the sorted runs of the runs path, uint64 keys held as int64
+    runs = torch.empty((g, c), dtype=torch.int64, device=dev)
     lib = nvcc.load("sweep_prep")
     _launch_prep("sweep_spans", dev, lambda stream: lib.sweep_spans_launch(
         origin.data_ptr(), direction.data_ptr(), mask.data_ptr(),
         anyhit.data_ptr(), None if perm is None else perm.data_ptr(),
-        cl_min.data_ptr(), cl_max.data_ptr(),
-        None if groups is None else groups.data_ptr(), nspan.data_ptr(),
-        spans.data_ptr(), tile_sorted.data_ptr(), rayfeat.data_ptr(),
-        best.data_ptr(), None if runs is None else runs.data_ptr(), g, c,
+        cl_min.data_ptr(), cl_max.data_ptr(), groups.data_ptr(),
+        nspan.data_ptr(), spans.data_ptr(), tile_sorted.data_ptr(),
+        rayfeat.data_ptr(), best.data_ptr(), runs.data_ptr(), g, c,
         timing.device_counter("cast_live_rays", dev),
         timing.device_counter("k1a_pairs_tested", dev), stream))
     sweep_spans.launches += 1
@@ -574,10 +549,11 @@ def _smoke_prep(device):
     cl_max = cl_min + 1.5
 
     def launch():
-        key = sweep_key(origin, direction, mask, cl_min, cl_max)
+        groups = group_boxes(cl_min, cl_max)
+        key = sweep_key(origin, direction, mask, cl_min, cl_max, groups)
         perm = torch.sort(key, stable=True).indices
         out = sweep_spans(origin, direction, mask, anyhit, perm, cl_min,
-                          cl_max)
+                          cl_max, groups)
         return torch.cat([key.float(), *(x.float().reshape(-1)
                                          for x in out)])
 
@@ -610,13 +586,11 @@ def sweep_inputs(scene, origin, direction, mask, anyhit):
     """Preparation of one cast: the sweep kernel's arguments (nspan,
     spans, tile_sorted, rayfeat, best, trifeat) for rays padded to a
     multiple of TILE_R, and the sort permutation (None when the rays fit
-    one tile) that put them in kernel order. On a CUDA tensor two kernels
-    and one torch.sort (past SMEM_CLUSTERS after group_boxes, once for
-    both); on a CPU tensor their plain versions. A span
-    rt.cast.prep; the padded R goes to the counter cast_lanes, R x C (the
-    ray x cluster slab tests each preparation kernel makes) to
-    cast_pairs, and a cast past SMEM_CLUSTERS clusters (sweep_runs) adds
-    one to cast_runs."""
+    one tile) that put them in kernel order. On a CUDA tensor group_boxes,
+    then sweep_key, one torch.sort and sweep_spans, whatever the cluster
+    count; on a CPU tensor their plain versions. A span rt.cast.prep; the
+    padded R goes to the counter cast_lanes and R x C (the ray x cluster
+    pairs each preparation kernel covers) to cast_pairs."""
     with timing.span("rt.cast.prep"):
         origin, direction, mask, anyhit = pad_cast(origin, direction, mask,
                                                    anyhit)
@@ -625,11 +599,8 @@ def sweep_inputs(scene, origin, direction, mask, anyhit):
         c = cl_min.shape[0]
         timing.count("cast_lanes", r)
         timing.count("cast_pairs", r * c)
-        timing.count("cast_runs", int(c > SMEM_CLUSTERS))
 
-        # past SMEM_CLUSTERS both kernels take the same group boxes
-        groups = (_culled_groups("sweep_inputs", cl_min.device, cl_min,
-                                 cl_max) if cl_min.is_cuda else None)
+        groups = group_boxes(cl_min, cl_max)   # both kernels take them
         perm = None
         if r > TILE_R:
             key = sweep_key(origin, direction, mask, cl_min, cl_max, groups)

@@ -1,50 +1,45 @@
-"""K1's preparation kernels alone (csrc/sweep_prep.cu: sweep_key,
-sweep_spans) at the main path's shapes, what their code issues per (ray,
-cluster) pair, and their device time in one sweep pass.
+"""K1's preparation kernels alone (csrc/sweep_prep.cu: sweep_groups,
+sweep_key, sweep_spans) at the main path's shapes, what their code issues
+per (ray, cluster) pair, and their device time in one sweep pass.
 
     python -m opengl_ray_tracing_framework_tpu_torch.probes.prep_kernels
 
 The casts are those of chip_smoke.py phase 3: on the 81,922-triangle scene
 in blocks of 256 (484 clusters) a 131,072-ray primary cast, the merged
 NEE-shadow + bounce cast of the first bounce of 65,536 primary rays (the
-pair) and that of bounce 4 (the deep pair), and the primary cast and pair
-on the scene rebuilt in blocks of 512 and 1,024. run_case holds each
-kernel to its plain version on every output (torch.equal), then times it
-by CUDA-graph replays (probes.graph_ms: the kernels back to back, no host
-between them, so a cast of a few hundred rays is resolved too) beside the
-stable torch.sort of the keys (probes.cuda_ms) and its bound
-(probes.prep_bound); chip_smoke.py phase 3 calls it with the plain
-versions' times. sass_report reads cuobjdump's SASS of the loaded library:
-for each kernel's innermost loops that hold a slab test, the instructions
-per pair (a slab test has six FMUL), split by the pipe they issue on, and
-at the pair the least time each pipe's rate allows: pairs x instructions
-per pair over 132 SMs x (64 per clock on the ALU pipe, 128 on the FMA
-pipe, 128 issued) at the card's top SM clock. pass_profile renders one
-sweep pass of chip_smoke.py's frame (1024x512, 8 bounces, 1 spp, 65,536
-rays a batch) under torch.profiler after a warm pass: each kernel's device
-time and launches over the pass, beside the device's time in all kernels.
+pair) and that of bounce 4 (the deep pair); the primary cast and pair on
+the scene rebuilt in blocks of 512, 1,024 and 8 (243, 121 and 14,172
+clusters) and on mesh_scene (29,442 clusters: group boxes in two chunks);
+the same three casts on the 5,122-triangle jade scene (33 clusters, a
+512x512 frame, the deep pair of bounce 3); and 8,193 boxes that every ray
+enters (finite_case: every tile minimum finite, so every tile takes
+sweep_spans's runs path). run_case holds each kernel to its plain version
+on every output (torch.equal), then times it by CUDA-graph replays
+(probes.graph_ms: the kernels back to back, no host between them, so a
+cast of a few hundred rays is resolved too) beside the stable torch.sort
+of the keys (probes.cuda_ms), its bound at the all-pairs count
+(probes.prep_bound) and the member pairs both kernels test (the device
+counter k1a_pairs_tested) against 2 x cast_pairs, with the cast's K1(a)
+time: the two kernels and, where sweep_inputs launches it, sweep_groups;
+chip_smoke.py phase 3 calls it with the plain versions' times. groups_case
+holds sweep_groups to group_boxes_plain and times it, on the 14,172
+clusters and on 30,741 random boxes (glass5m's count). sass_report reads
+cuobjdump's SASS of the loaded library: for each kernel's innermost loops
+that hold a slab test, the instructions per pair (a slab test has six
+FMUL), split by the pipe they issue on, and at the pair the least time
+each pipe's rate allows: pairs x instructions per pair over 132 SMs x (64
+per clock on the ALU pipe, 128 on the FMA pipe, 128 issued) at the card's
+top SM clock. pass_profile renders one sweep pass of chip_smoke.py's frame
+(1024x512, 8 bounces, 1 spp, 65,536 rays a batch) under torch.profiler
+after a warm pass: each kernel's device time and launches over the pass,
+beside the device's time in all kernels. Last, the peak device memory of
+one primary cast (sweep_inputs and K1) and one render_pass of the bench's
+frame (131,072 rays a batch) on 484 and on 14,172 clusters.
 
-With --past-smem it times the path for more clusters than sweep_spans
-holds in shared memory (the culled kernels sweep_key_kernel_culled and
-sweep_runs, after the group boxes): run_case on the same scene in blocks
-of 8 (14,172 clusters) and on mesh_scene (29,442 clusters: group boxes in
-two chunks), the primary cast and the pair, and on 8,193 boxes
-that every ray enters (every tile minimum finite: each tile takes
-sweep_runs's dense path, which sorts and merges all of them), each
-kernel's time beside its bound at the dense pair count and the member
-pairs both kernels test against 2 x cast_pairs (the device counter
-k1a_pairs_tested); the peak device memory of one cast (sweep_inputs and
-K1) on 484 and on 14,172 clusters; and one render_pass of the bench's
-frame (1024x512, 8 bounces, 1 spp, 131,072 rays a batch) with the sweep
-tracer on each of the two, after a warm pass, fenced by a host copy; and
-the group boxes (sweep_groups) of the 14,172 clusters and of 30,741
-random boxes, held to group_boxes_plain and timed beside their bound.
-
-It uses only entry points every tree of the port has had since the
-preparation kernels came (the counter where the tree has it), so a copy of
-it runs in an older tree; two trees
-are compared only inside one call on one card, in turns (parent, change,
-change, parent). It prints a line per case and one JSON line last.
+It uses only entry points every tree of the port has had since the group
+boxes came, so a copy of it runs in an older tree; two trees are compared
+only inside one call on one card, in turns (parent, change, change,
+parent). It prints a line per case and one JSON line last.
 """
 
 from __future__ import annotations
@@ -66,7 +61,9 @@ PRIMARY_RAYS = 131072
 PAIR_BATCH = 65536       # primary rays whose first bounce makes the pair
 DEEP_BOUNCE = 5          # the deep pair: the merged cast of bounce 4
 WIDE_T = (512, 1024)
-SMALL_T = 8              # blocks of 8: 14,172 clusters, past shared memory
+SMALL_T = 8              # blocks of 8: 14,172 clusters
+JADE = dict(subdiv=4, material="jade", width=512, height=512, bounces=4,
+            label="jade ")   # jade5k's scene: 5,122 triangles, 33 clusters
 MESH_SUBDIV, MESH_T = 7, 16   # 327,682 triangles in blocks of 16: 29,442
                               # clusters, group boxes in two chunks of 512
 GLASS5M_CLUSTERS = 30741   # glass5m's clusters: group boxes in two chunks
@@ -88,11 +85,13 @@ _INSTR = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?"
 _LABEL = re.compile(r"^\s*(\.L_x_\d+):")
 
 
-def casts(device, blocks=WIDE_T):
+def casts(device, blocks=WIDE_T, subdiv=6, material="tear_glass",
+          width=1024, height=512, bounces=DEEP_BOUNCE, label=""):
     """{case: (scene, (origin, direction, mask, anyhit))} of the module's
-    casts, on the card: the primary cast, the pair and the deep pair, then
-    the primary cast and the pair on the scene rebuilt in blocks of each
-    of `blocks` triangles."""
+    casts, on the card: the primary cast, the pair and the deep pair (of
+    bounce `bounces` - 1) on the glass scene (or, with **JADE, the jade
+    scene, each name after `label`), then the primary cast and the pair on
+    the scene rebuilt in blocks of each of `blocks` triangles."""
     from .. import Camera, RenderConfig, build_test_scene
     from ..models.hdr import make_gradient_hdr
     from ..models.material import preset_materials
@@ -100,10 +99,10 @@ def casts(device, blocks=WIDE_T):
     from ..render import pixel_order
 
     host, scene = build_test_scene(
-        6, material=preset_materials()["tear_glass"],
+        subdiv, material=preset_materials()[material],
         env=make_gradient_hdr(1024, 512), device=device)
-    config = RenderConfig(width=1024, height=512, max_bounce=DEEP_BOUNCE)
-    camera = Camera.make(aspect=2.0).to(device)
+    config = RenderConfig(width=width, height=height, max_bounce=bounces)
+    camera = Camera.make(aspect=width / height).to(device)
     pid = pixel_order(config, 0, config.height, device)[:PRIMARY_RAYS]
     o, d = camera.generate_rays(
         ((pid % config.width).float() + 0.5) / config.width,
@@ -131,20 +130,21 @@ def casts(device, blocks=WIDE_T):
                 torch.cat([m_a, m_c]),
                 torch.cat([torch.ones_like(m_a), torch.zeros_like(m_c)]))
 
-    out = {"primary": (scene, primary), "pair": (scene, merged(captured[0])),
-           f"deep pair (bounce {DEEP_BOUNCE - 1})":
+    pair = merged(captured[0])
+    out = {f"{label}primary": (scene, primary), f"{label}pair": (scene, pair),
+           f"{label}deep pair (bounce {bounces - 1})":
                (scene, merged(captured[-1]))}
     for t_blk in blocks:
         wide = host.build(cluster_size=t_blk, device=device)
-        out[f"primary, T {t_blk}"] = (wide, primary)
-        out[f"pair, T {t_blk}"] = (wide, out["pair"][1])
+        out[f"{label}primary, T {t_blk}"] = (wide, primary)
+        out[f"{label}pair, T {t_blk}"] = (wide, pair)
     return out
 
 
 def mesh_scene(device):
     """The glass scene's sphere at MESH_SUBDIV subdivisions (327,682
-    triangles) in blocks of MESH_T: past 16,384 clusters, so the culled
-    kernels stage their group boxes in two chunks, as on glass5m."""
+    triangles) in blocks of MESH_T: past 16,384 clusters, so the kernels
+    stage their group boxes in two chunks, as on glass5m."""
     from .. import build_test_scene
 
     host, _ = build_test_scene(MESH_SUBDIV, device="cpu")
@@ -156,16 +156,19 @@ def run_case(name, scene, rays, plain=False):
     output of one cast (padded as sweep_inputs pads it; RuntimeError if
     any differs), time each and print the case's line. Returns {"rays",
     "live", "clusters", "tiles", "pairs", "key_dtype", "nspan_min",
-    "nspan_max", "sort_ms", "tested" (pairs_tested), "sweep_key": ...,
-    "sweep_spans": ...}, each kernel's entry {"ms", "bound", "err"} (err
-    0.0: every output equal) and, with `plain`, the plain version's
+    "nspan_max", "sort_ms", "tested" (pairs_tested), "groups_ms" (the
+    group boxes' time where sweep_inputs launches them, else None),
+    "k1a_ms" (the two kernels' and the group boxes' times), "sweep_key":
+    ..., "sweep_spans": ...}, each kernel's entry {"ms", "bound", "err"}
+    (err 0.0: every output equal) and, with `plain`, the plain version's
     "plain_ms"."""
     o, d, m, a = sw.pad_cast(*rays)
     lo, hi = scene.cl_aabb_min, scene.cl_aabb_max
     args = (o, d, m, a, lo, hi)
-    key = sw.sweep_key(o, d, m, lo, hi)
+    groups = sw.group_boxes(lo, hi)
+    key = sw.sweep_key(o, d, m, lo, hi, groups)
     perm = torch.sort(key, stable=True).indices
-    got = (key, *sw.sweep_spans(o, d, m, a, perm, lo, hi))
+    got = (key, *sw.sweep_spans(o, d, m, a, perm, lo, hi, groups))
     want = (sw.sweep_key_plain(o, d, m, lo, hi),
             *sw.sweep_spans_plain(o, d, m, a, perm, lo, hi))
     torch.cuda.synchronize()
@@ -174,41 +177,46 @@ def run_case(name, scene, rays, plain=False):
             raise RuntimeError(
                 f"prep {name}: {label} differs from the plain version in "
                 f"{int((g != w).sum())} of {w.numel()} entries")
-    calls = {"sweep_key": (lambda: sw.sweep_key(o, d, m, lo, hi),
+    calls = {"sweep_key": (lambda: sw.sweep_key(o, d, m, lo, hi, groups),
                            lambda: sw.sweep_key_plain(o, d, m, lo, hi)),
              "sweep_spans": (
-                 lambda: sw.sweep_spans(o, d, m, a, perm, lo, hi),
+                 lambda: sw.sweep_spans(o, d, m, a, perm, lo, hi, groups),
                  lambda: sw.sweep_spans_plain(o, d, m, a, perm, lo, hi))}
     r, c, live = o.shape[0], lo.shape[0], int(m.sum())
+    launched = sw.group_boxes.launches
+    sw.sweep_inputs(scene, o, d, m, a)
     out = dict(rays=r, live=live, clusters=c, tiles=r // sw.TILE_R,
                pairs=live * c, key_dtype=key.dtype,
                nspan_min=int(want[1].min()), nspan_max=int(want[1].max()),
                sort_ms=cuda_ms(lambda: torch.sort(key, stable=True)),
-               tested=pairs_tested(args, perm))
+               tested=pairs_tested(args, perm, groups),
+               groups_ms=(graph_ms(lambda: sw.group_boxes(lo, hi))
+                          if sw.group_boxes.launches > launched else None))
     parts = []
     for kname, bound in zip(calls, bounds(args)[:2]):
         kernel, plain_fn = calls[kname]
         entry = dict(ms=graph_ms(kernel), bound=bound, err=0.0)
-        # a culled kernel skips most pairs: its time can fall below the
-        # bound of testing them all
-        which = "its bound" if out["tested"] is None else "the dense bound"
+        # the group boxes skip most pairs: a kernel's time can fall below
+        # the bound of testing them all
         text = (f"{kname} {entry['ms']:.4f} ms ({bound[0] / entry['ms']:.1%}"
-                f" of {which} {bound[0]:.4f} ms by {bound[1]})")
+                f" of the all-pairs bound {bound[0]:.4f} ms by {bound[1]})")
         if plain:
             entry["plain_ms"] = cuda_ms(plain_fn, repeats=2)
             text += f", plain {entry['plain_ms']:.3f} ms"
         out[kname] = entry
         parts.append(text)
-    tested = ""
-    if out["tested"] is not None:
-        tested = (f" | member pairs tested {out['tested']} of 2 x "
-                  f"{r * c} cast_pairs ({out['tested'] / (2 * r * c):.4f})")
+    out["k1a_ms"] = (out["sweep_key"]["ms"] + out["sweep_spans"]["ms"]
+                     + (out["groups_ms"] or 0.0))
+    groups_text = ("no sweep_groups" if out["groups_ms"] is None
+                   else f"sweep_groups {out['groups_ms']:.4f} ms")
     print(f"prep {name}: {r} rays ({live} live), {c} clusters, "
           f"{out['tiles']} tiles, spans/tile mean "
           f"{want[1].float().mean().item():.1f} max {out['nspan_max']} | "
           "every output equal | " + " | ".join(parts)
-          + f" | torch.sort of the {key.dtype} keys "
-          f"{out['sort_ms']:.4f} ms" + tested)
+          + f" | {groups_text} | K1(a) {out['k1a_ms']:.4f} ms | torch.sort "
+          f"of the {key.dtype} keys {out['sort_ms']:.4f} ms | member pairs "
+          f"tested {out['tested']} of 2 x {r * c} cast_pairs "
+          f"({out['tested'] / (2 * r * c):.4f})")
     return out
 
 
@@ -230,9 +238,7 @@ def groups_case(name, lo, hi, plain=False):
     they differ), time it by CUDA-graph replays beside its bound (each box
     read once, each group box written once) and print the case's line.
     Returns {"clusters", "groups", "ms", "bound", "err"} and, with `plain`,
-    "plain_ms"; None in a tree without group boxes."""
-    if not hasattr(sw, "group_boxes"):
-        return None
+    "plain_ms"."""
     got, want = sw.group_boxes(lo, hi), sw.group_boxes_plain(lo, hi)
     torch.cuda.synchronize()
     if got.shape != want.shape or not torch.equal(got, want):
@@ -253,57 +259,51 @@ def groups_case(name, lo, hi, plain=False):
     return out
 
 
-def pairs_tested(args, perm):
-    """The member slab tests both kernels make on one cast past
-    SMEM_CLUSTERS clusters (the device counter k1a_pairs_tested under
-    tracing()), or None below it and in a tree without the counter."""
+def pairs_tested(args, perm, groups):
+    """The member slab tests both kernels make on one cast (the device
+    counter k1a_pairs_tested under tracing())."""
     from ..utils import timing
 
     o, d, m, a, lo, hi = args
-    if (lo.shape[0] <= getattr(sw, "SMEM_CLUSTERS", lo.shape[0]) or
-            "k1a_pairs_tested" not in getattr(timing, "DEVICE_COUNTERS", ())):
-        return None
     with timing.tracing(o.device) as rec:
-        sw.sweep_key(o, d, m, lo, hi)
-        sw.sweep_spans(o, d, m, a, perm, lo, hi)
+        sw.sweep_key(o, d, m, lo, hi, groups)
+        sw.sweep_spans(o, d, m, a, perm, lo, hi, groups)
     return rec.counters["k1a_pairs_tested"]
 
 
 def bounds(args):
     """(sweep_key's, sweep_spans's probes.prep_bound, pairs) on these
-    inputs: each input read once and each output written once, and past
-    SMEM_CLUSTERS clusters sweep_runs's (G, C) scratch of 8-byte keys
-    written once and read once."""
+    inputs at the all-pairs count: each input read once and each output
+    written once, and sweep_spans's (G, C) scratch of 8-byte keys written
+    once and read once."""
     o, _, m, _, lo, _ = args
     r, c, live = o.shape[0], lo.shape[0], int(m.sum())
     g = r // sw.TILE_R
     key_bytes = r * (24 + 1 + 4) + c * 24
     spans_bytes = (r * (24 + 2 + 8) + c * 24 + g * 4 + g * c * 8
-                   + r * (16 + 8) * 4)
-    # a tree from before sweep_runs has no SMEM_CLUSTERS (and takes no more)
-    if c > getattr(sw, "SMEM_CLUSTERS", c):
-        spans_bytes += 2 * g * c * 8
+                   + r * (16 + 8) * 4 + 2 * g * c * 8)
     return (prep_bound(live * c, key_bytes), prep_bound(live * c, spans_bytes),
             live * c)
 
 
 def finite_case(device, n_rays=PRIMARY_RAYS):
-    """(boxes, rays) where every ray enters every box: SMEM_CLUSTERS + 1
-    unit cubes along the diagonal (cube k from k * 1e-3), rays along (1, 1,
-    1) from within 0.3 of (-1, -1, -1) on each axis (a line parallel to the
+    """(boxes, rays) where every ray enters every box: 8,193 unit cubes
+    along the diagonal (cube k from k * 1e-3), rays along (1, 1, 1) from
+    within 0.3 of (-1, -1, -1) on each axis (a line parallel to the
     diagonal enters every such cube), so every tile minimum is finite and
     each tile sorts and merges all of them. `boxes` has cl_aabb_min /
-    cl_aabb_max as a scene has."""
+    cl_aabb_max and a cl_trifeat of empty blocks, as a scene has."""
     from types import SimpleNamespace
 
-    c = sw.SMEM_CLUSTERS + 1
+    c = 8193
     lo = torch.arange(c, device=device, dtype=torch.float32)[:, None] \
         * 1e-3 + torch.zeros((1, 3), device=device)
     gen = torch.Generator(device=device).manual_seed(c)
     o = torch.rand((n_rays, 3), generator=gen, device=device) * 0.6 - 1.3
     d = torch.full((n_rays, 3), 3 ** -0.5, device=device)
     ones = torch.ones(n_rays, dtype=torch.bool, device=device)
-    return (SimpleNamespace(cl_aabb_min=lo, cl_aabb_max=lo + 1),
+    return (SimpleNamespace(cl_aabb_min=lo, cl_aabb_max=lo + 1,
+                            cl_trifeat=torch.zeros((c, 16, 4), device=device)),
             (o, d, ones, torch.zeros_like(ones)))
 
 
@@ -325,7 +325,7 @@ def parse_sass(text: str) -> dict:
     for part in re.split(r"\n\s*Function : ", text)[1:]:
         fname = part.split(None, 1)[0]
         # the name whole (mangled: its length before it, E after it), not
-        # inside a longer one (sweep_key_kernel_culled)
+        # inside a longer one
         kernel = next((k for k in KERNELS
                        if f"{len(k)}{k}E" in fname or f"{k}(" in fname),
                       None)
@@ -499,68 +499,47 @@ def bench_pass(scene, device):
     return out
 
 
-def past_smem(device):
-    """The --past-smem cases: run_case (with the plain version's time) on
-    finite_case and on the casts on blocks of 8 and on mesh_scene, every
-    tile minimum of finite_case checked finite; groups_case on the 14,172 clusters and
-    on random boxes at glass5m's count; cast_peak_gib of the primary cast
-    and bench_pass on 484 and 14,172 clusters. Prints a line a case;
-    returns the results."""
-    result = {"cases": {}, "cast_peak_gib": {}, "bench_pass": {},
-              "groups": {}}
-    boxes, rays = finite_case(device)
-    name = f"{boxes.cl_aabb_min.shape[0]} clusters, every minimum finite"
-    res = run_case(name, boxes, rays, plain=True)
-    if res["nspan_min"] != res["clusters"]:
-        raise RuntimeError(f"prep {name}: a tile minimum is INF")
-    result["cases"][name] = res
-    cases = casts(device, blocks=(SMALL_T,))
-    for name in (f"primary, T {SMALL_T}", f"pair, T {SMALL_T}"):
-        result["cases"][name] = run_case(name, *cases[name], plain=True)
-    mesh = mesh_scene(device)
-    for cast in ("primary", "pair"):
-        name = f"{cast}, {mesh.cl_aabb_min.shape[0]} clusters"
-        result["cases"][name] = run_case(name, mesh, cases[cast][1],
-                                         plain=True)
-    small = cases[f"primary, T {SMALL_T}"][0]
-    for name, (lo, hi) in (
-            (f"T {SMALL_T}", (small.cl_aabb_min, small.cl_aabb_max)),
-            (f"random, {GLASS5M_CLUSTERS}",
-             random_boxes(device, GLASS5M_CLUSTERS))):
-        result["groups"][name] = groups_case(name, lo, hi, plain=True)
-    for scene, rays in (cases["primary"], cases[f"primary, T {SMALL_T}"]):
-        label = f"{scene.cl_aabb_min.shape[0]} clusters"
-        peak = result["cast_peak_gib"][label] = cast_peak_gib(scene, rays)
-        res = result["bench_pass"][label] = bench_pass(scene, device)
-        print(f"prep past-smem {label}: one primary cast of "
-              f"{rays[0].shape[0]} rays peaks {peak:.4f} GiB above its "
-              f"inputs | one bench pass (1024x512, {PASS_BOUNCES} bounces, "
-              f"{BENCH_TILE} rays a batch) {res['pass_s']:.3f} s, peak "
-              f"{res['peak_gib']:.4f} GiB, K1 launches "
-              f"{res['k1_launches']}, sweep_spans launches "
-              f"{res['prep_launches']}, plain calls {res['plain_calls']}, "
-              f"image mean {res['image_mean']:.6f}")
-    return result
-
-
 def main(argv=None):
     import argparse
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    parser.add_argument("--past-smem", action="store_true",
-                        help="time the path past SMEM_CLUSTERS clusters")
-    args = parser.parse_args(argv)
+    parser.parse_args(argv)
     dev = torch.device("cuda")
     print(device_line())
-    result = {"device": device_line(), "cases": {}}
-    if args.past_smem:
-        result.update(past_smem(dev))
-    else:
-        cases = casts(dev)
-        for name, (scene, rays) in cases.items():
-            result["cases"][name] = run_case(name, scene, rays)
-        result.update(sass_report(result["cases"]["pair"]["pairs"]))
-        result["pass"] = pass_profile(cases["primary"][0], dev)
+    result = {"device": device_line(), "cases": {}, "groups": {},
+              "cast_peak_gib": {}, "bench_pass": {}}
+    cases = casts(dev, blocks=(*WIDE_T, SMALL_T))
+    cases.update(casts(dev, blocks=(), **JADE))
+    mesh = mesh_scene(dev)
+    for cast in ("primary", "pair"):
+        cases[f"{cast}, {mesh.cl_aabb_min.shape[0]} clusters"] = (
+            mesh, cases[cast][1])
+    boxes, rays = finite_case(dev)
+    finite = f"{boxes.cl_aabb_min.shape[0]} clusters, every minimum finite"
+    cases[finite] = (boxes, rays)
+    for name, (scene, rays) in cases.items():
+        result["cases"][name] = run_case(name, scene, rays)
+    if result["cases"][finite]["nspan_min"] != boxes.cl_aabb_min.shape[0]:
+        raise RuntimeError(f"prep {finite}: a tile minimum is INF")
+    small = cases[f"primary, T {SMALL_T}"][0]
+    for name, (lo, hi) in (
+            (f"T {SMALL_T}", (small.cl_aabb_min, small.cl_aabb_max)),
+            (f"random, {GLASS5M_CLUSTERS}",
+             random_boxes(dev, GLASS5M_CLUSTERS))):
+        result["groups"][name] = groups_case(name, lo, hi)
+    result.update(sass_report(result["cases"]["pair"]["pairs"]))
+    result["pass"] = pass_profile(cases["primary"][0], dev)
+    for scene, rays in (cases["primary"], cases[f"primary, T {SMALL_T}"]):
+        label = f"{scene.cl_aabb_min.shape[0]} clusters"
+        peak = result["cast_peak_gib"][label] = cast_peak_gib(scene, rays)
+        res = result["bench_pass"][label] = bench_pass(scene, dev)
+        print(f"prep pass {label}: one primary cast of {rays[0].shape[0]} "
+              f"rays peaks {peak:.4f} GiB above its inputs | one bench pass "
+              f"(1024x512, {PASS_BOUNCES} bounces, {BENCH_TILE} rays a "
+              f"batch) {res['pass_s']:.3f} s, peak {res['peak_gib']:.4f} "
+              f"GiB, K1 launches {res['k1_launches']}, sweep_spans launches "
+              f"{res['prep_launches']}, plain calls {res['plain_calls']}, "
+              f"image mean {res['image_mean']:.6f}")
     for res in result["cases"].values():
         res["key_dtype"] = str(res["key_dtype"])
     print(json.dumps(result))

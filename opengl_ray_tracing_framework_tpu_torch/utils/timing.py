@@ -56,11 +56,9 @@ Counters:
   cast_lanes       the sweep's lanes launched: each cast's R padded to a
                    whole number of 128-ray tiles (ops/sweep.py)
   cast_pairs       the ray x cluster pairs of K1(a) a cast: its padded R
-                   x the scene's C (the slab tests each of sweep_key and
-                   sweep_spans makes; past SMEM_CLUSTERS the culled
-                   kernels make k1a_pairs_tested in all)
-  cast_runs        casts past SMEM_CLUSTERS clusters, which take
-                   sweep_runs and its (G, C) scratch (ops/sweep.py)
+                   x the scene's C (the pairs each of sweep_key and
+                   sweep_spans covers; their group boxes leave
+                   k1a_pairs_tested slab tests in all)
   bounces          bounces run (rt.bounce spans)
   bounce_lanes     live lanes at each bounce's start, summed
   syncs            rt.sync spans
@@ -71,16 +69,16 @@ Counters:
                    (csrc/sweep.cu; sweep_plain on the CPU)
   cast_live_rays   (device) rays of the sweep's casts that are masked on
                    and enter at least one cluster box: those whose key is
-                   not dead (csrc/sweep_prep.cu's sweep_spans / sweep_runs;
+                   not dead (csrc/sweep_prep.cu's sweep_spans;
                    sweep_spans_plain on the CPU)
   k1a_pairs_tested (device) the (ray, cluster) member slab tests that
-                   K1(a)'s culled kernels make past SMEM_CLUSTERS clusters
-                   (csrc/sweep_prep.cu's sweep_key_kernel_culled and
-                   sweep_runs: a warp's lanes, times its rays a lane, times
-                   the members of each group box it enters; group tests
-                   are not counted); over 2 x cast_pairs, the share of the
-                   dense kernels' tests left. 0 on the CPU and at C <=
-                   SMEM_CLUSTERS
+                   K1(a)'s kernels make at every cluster count
+                   (csrc/sweep_prep.cu's sweep_key and sweep_spans: a
+                   warp's lanes, times its rays a lane, times the members
+                   of each group box it enters; group tests are not
+                   counted); over 2 x cast_pairs, the share of the
+                   all-pairs slab test left. 0 on the CPU, whose plain
+                   versions test every pair
 
 pass_breakdown (the `--timing` flag) runs `repeats` real render_pass calls
 under tracing() and reports each span's host time a pass, total and self
@@ -100,7 +98,7 @@ import torch
 
 from .config import resolve_device
 
-HOST_COUNTERS = ("casts", "cast_lanes", "cast_pairs", "cast_runs", "bounces",
+HOST_COUNTERS = ("casts", "cast_lanes", "cast_pairs", "bounces",
                  "bounce_lanes", "syncs", "shade_fused_lanes")
 DEVICE_COUNTERS = ("k1_spans_walked", "cast_live_rays", "k1a_pairs_tested")
 

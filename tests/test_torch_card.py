@@ -5,18 +5,17 @@ cluster_intersect_plain for blocks of T = 256 (one bulk copy of the whole
 block), 512, 1,024 and 4,096 (chunks of a CTA's columns by tensor-map
 copies) and 302 (no multiple of 4: hand-copied chunks), and the refusal of
 a block wider than the kernels' 4,096; K1's preparation kernels
-(csrc/sweep_prep.cu: sweep_key, sweep_spans) against sweep_key_plain and
-sweep_spans_plain on every output, on the 81,922-triangle scene in
-blocks of 256, 512, 1,024, 128 and 8 (C = 484, 243, 121, one over a
-chunk of 512 boxes, and 14,172), on its sphere at 7 subdivisions in
-blocks of 16 (29,442: group boxes in two chunks of 512), at
-C = SMEM_CLUSTERS (the last count
-sweep_spans holds in shared memory) and above it (sweep_runs: sorted runs
-in global scratch, merged by rank) at one more, every tile minimum
-finite, and at 3 * SMEM_CLUSTERS + 5, the cases aimed at the group-box
-cull past it (_prep_culled), and the whole merged cast on the 14,172
-clusters against the plain versions; the group boxes (sweep_groups)
-against group_boxes_plain;
+(csrc/sweep_prep.cu: sweep_key, sweep_spans, both culled by the group
+boxes of sweep_groups) against sweep_key_plain and sweep_spans_plain on
+every output, on the 81,922-triangle scene in blocks of 256, 512, 1,024,
+128 and 8 (C = 484, 243, 121, one over a chunk of 512 boxes, and
+14,172), on the 5,122-triangle scene in blocks of 256 (33), on its
+sphere at 7 subdivisions in blocks of 16 (29,442: group boxes in two
+chunks of 512), at C = 1, 45, 8,192 and one more, every tile minimum
+finite (sorted runs in global scratch, merged by rank), and at 3 x 8,192
++ 5, the cases aimed at the group-box cull (_prep_culled), and the whole
+merged cast on the 14,172 clusters against the plain versions; the group
+boxes (sweep_groups) against group_boxes_plain;
 the chained lookups (K4c-2,
 csrc/probe_gather.cu) on tables whose columns differ and the block sums
 (K4c-3, csrc/probe_stream.cu) for one and many rows of starts, and the
@@ -189,9 +188,10 @@ def test_blocks_beyond_the_limit_are_refused():
 
 PREP_BLOCKS = [256, 512, 1024, 128, 8]
 PREP_MESH = "29,442 clusters"   # prep_kernels.mesh_scene: two chunks
+PREP_JADE = "33 clusters"       # the jade5k cell's 5,122 triangles
 PREP_SYNTHETIC = ["masked warps", "one live ray", "all dead", "one cluster",
-                  "45 clusters", "ties", "max clusters",
-                  "past the shared memory", "many runs"]
+                  "45 clusters", "ties", "8,192 clusters",
+                  "every minimum finite", "many runs"]
 PREP_CULLED = ["culled: inside a group", "culled: grazing",
                "culled: axis rays", "culled: flat boxes",
                "culled: ties across groups", "culled: some tiles fall back",
@@ -226,23 +226,21 @@ def _prep_synthetic(case, dev):
     one live ray a tile; tiles with no live ray and a tile whose live rays
     miss every box; C = 1 and C = 45 (no multiple of 32 or 4); 150 equal
     boxes among 300, so many tile minima tie (the rays inside them at
-    +0.0) and the stable order decides; C = SMEM_CLUSTERS overlapping
-    boxes, the most the shared-memory path holds; and the same boxes at
-    one more cluster (the sorted runs of sweep_runs), where one ray of
-    each tile runs along the boxes' diagonal, so every tile minimum is
-    finite (nf = C), beside a tile with no live ray and a masked warp;
-    and the same boxes at 3 * SMEM_CLUSTERS + 5 (twelve runs of 2,048
-    and one of five)."""
+    +0.0) and the stable order decides; C = 8,192 overlapping boxes; and
+    the same boxes at one more cluster, where one ray of each tile runs
+    along the boxes' diagonal, so every tile minimum is finite (nf = C:
+    the sorted runs of sweep_spans's runs path), beside a tile with no
+    live ray and a masked warp; and the same boxes at 3 x 8,192 + 5
+    (twelve runs of 2,048 and one of five)."""
     rng = np.random.default_rng(PREP_SYNTHETIC.index(case) + 11)
     c = {"one cluster": 1, "45 clusters": 45, "ties": 300,
-         "max clusters": tsweep.SMEM_CLUSTERS,
-         "past the shared memory": tsweep.SMEM_CLUSTERS + 1,
-         "many runs": 3 * tsweep.SMEM_CLUSTERS + 5}.get(case, 484)
+         "8,192 clusters": 8192, "every minimum finite": 8193,
+         "many runs": 3 * 8192 + 5}.get(case, 484)
     lo = rng.uniform(-3, 3, (c, 3)).astype(np.float32)
     hi = lo + rng.uniform(0.2, 1.5, (c, 3)).astype(np.float32)
     if case == "ties":
         lo[::2], hi[::2] = lo[0], hi[0]
-    if case in ("max clusters", "past the shared memory", "many runs"):
+    if case in ("8,192 clusters", "every minimum finite", "many runs"):
         lo = (np.arange(c, dtype=np.float32)[:, None] * 1e-3
               + np.zeros((1, 3), np.float32))
         hi = lo + 1
@@ -265,7 +263,7 @@ def _prep_synthetic(case, dev):
         miss = (i // tsweep.TILE_R) == 3   # live, and they miss every box
         o[miss] = 100.0
         d[miss] = np.float32(1 / np.sqrt(3))
-    elif case == "past the shared memory":
+    elif case == "every minimum finite":
         along = i % tsweep.TILE_R == 5   # from (-1, -1, -1) along (1, 1, 1)
         o[along] = -1.0
         d[along] = np.float32(1 / np.sqrt(3))
@@ -280,8 +278,8 @@ def _prep_synthetic(case, dev):
 
 def _prep_culled(case, dev):
     """Boxes (cl_min, cl_max) and 8,192 rays (64 tiles) of a case aimed at
-    the group-box cull past SMEM_CLUSTERS, at C = SMEM_CLUSTERS + 37 (no
-    multiple of CULL_GROUP: the last group holds 5), or at 2 x 16,384 + 37
+    the group-box cull, at C = 8,192 + 37 (no multiple of CULL_GROUP: the
+    last group holds 5), or at 2 x 16,384 + 37
     (three chunks of 512 group boxes, the last of two). Group g's members are
     cubes of half-size 0.05 about points on the surface of the cube of
     half-size 0.5 about lattice point g, so the group box has an empty
@@ -304,7 +302,7 @@ def _prep_culled(case, dev):
     group, n = tsweep.CULL_GROUP, 8192
     c = (2 * 512 * group + 37 if case in ("culled: some tiles fall back",
                                           "culled: three chunks")
-         else tsweep.SMEM_CLUSTERS + 37)
+         else 8192 + 37)
     k = np.arange(c)
     g = k // group
     centre = (np.stack([g % 7, (g // 7) % 7, g // 49], 1) * 2.0 - 6.0
@@ -402,17 +400,18 @@ def _prep_culled(case, dev):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", PREP_BLOCKS + [PREP_MESH] + PREP_SYNTHETIC
-                         + PREP_CULLED)
+@pytest.mark.parametrize("case", PREP_BLOCKS + [PREP_JADE, PREP_MESH]
+                         + PREP_SYNTHETIC + PREP_CULLED)
 def test_prep_kernels_equal_plain(case, loong_scale_scene):
-    """sweep_key and sweep_spans equal their plain versions on every
-    output (torch.equal: the same values, -0.0 equal to +0.0; the key
-    int32), on the main path's scene cut into blocks of 256, 512, 1,024,
-    128 and 8, on prep_kernels.mesh_scene (29,442 clusters) and on the
-    synthetic cases of _prep_synthetic and
-    _prep_culled (each also with the rays in their own order, so its tiles
-    stay as built), and sweep_inputs on the card launches both, past
-    SMEM_CLUSTERS one sweep_groups for the two, and calls no plain
+    """sweep_key and sweep_spans, given the group boxes, equal their
+    plain versions on every output (torch.equal: the same values, -0.0
+    equal to +0.0; the key int32), on the main path's scene cut into
+    blocks of 256, 512, 1,024, 128 and 8, on the 5,122-triangle scene (33
+    clusters), on prep_kernels.mesh_scene (29,442 clusters) and on the
+    synthetic cases of _prep_synthetic and _prep_culled (each also with
+    the rays in their own order, so its tiles stay as built, and
+    sweep_spans's member tests counted), and sweep_inputs on the card
+    launches both and one sweep_groups for the two, and calls no plain
     version."""
     dev = _card()
     if isinstance(case, int):
@@ -422,6 +421,11 @@ def test_prep_kernels_equal_plain(case, loong_scale_scene):
                                8: SMALL_BLOCK_CLUSTERS}.get(
             case, lo.shape[0]) and (case != 128 or lo.shape[0] > 512)
         cases = _prep_cases(dev, case)
+    elif case == PREP_JADE:
+        scene = build_test_scene(4, device="cpu")[0].build(device=dev)
+        lo, hi = scene.cl_aabb_min, scene.cl_aabb_max
+        assert lo.shape[0] == 33
+        cases = _prep_cases(dev, 33)
     elif case == PREP_MESH:
         scene = prep_kernels.mesh_scene(dev)
         lo, hi = scene.cl_aabb_min, scene.cl_aabb_max
@@ -433,9 +437,10 @@ def test_prep_kernels_equal_plain(case, loong_scale_scene):
         scene = SimpleNamespace(
             cl_aabb_min=lo, cl_aabb_max=hi,
             cl_trifeat=torch.zeros((lo.shape[0], 16, 4), device=dev))
+    groups = tsweep.group_boxes(lo, hi)
     for n, (o, d, mask, anyhit) in cases:
         label = f"{case}, {lo.shape[0]} clusters, {n} rays"
-        key = tsweep.sweep_key(o, d, mask, lo, hi)
+        key = tsweep.sweep_key(o, d, mask, lo, hi, groups)
         want = tsweep.sweep_key_plain(o, d, mask, lo, hi)
         torch.cuda.synchronize()
         assert key.dtype == want.dtype == torch.int32
@@ -445,7 +450,8 @@ def test_prep_kernels_equal_plain(case, loong_scale_scene):
         if n <= tsweep.TILE_R or case in PREP_SYNTHETIC + PREP_CULLED:
             perms.append(None)
         for perm in perms:
-            got = tsweep.sweep_spans(o, d, mask, anyhit, perm, lo, hi)
+            got = tsweep.sweep_spans(o, d, mask, anyhit, perm, lo, hi,
+                                     groups)
             want = tsweep.sweep_spans_plain(o, d, mask, anyhit, perm, lo, hi)
             torch.cuda.synchronize()
             for name, g, w in zip(("nspan", "spans", "tile_sorted",
@@ -454,45 +460,45 @@ def test_prep_kernels_equal_plain(case, loong_scale_scene):
                 assert torch.equal(g, w), (
                     f"{label}, perm {perm is not None}: {name} differs in "
                     f"{int((g != w).sum())} entries")
-            if (case in PREP_SYNTHETIC + PREP_CULLED and perm is None
-                    and lo.shape[0] > tsweep.SMEM_CLUSTERS):
+            if case in PREP_SYNTHETIC + PREP_CULLED and perm is None:
                 # the tiles as built take the path the rule gives them, and
-                # sweep_runs counts the member tests that path makes
+                # sweep_spans counts the member tests that path makes
                 with timing.tracing(dev) as rec:
-                    tsweep.sweep_spans(o, d, mask, anyhit, None, lo, hi)
+                    tsweep.sweep_spans(o, d, mask, anyhit, None, lo, hi,
+                                       groups)
                 _, tests, fell_back = _culled_pairs(
                     o, d, mask, torch.arange(n, device=dev), lo, hi)
                 assert rec.counters["k1a_pairs_tested"] == tests > 0
                 assert fell_back == {"culled: some tiles fall back": 32,
-                                     "past the shared memory": 63}.get(
-                    case, fell_back)
+                                     "every minimum finite": 63}.get(
+                    case, 0 if lo.shape[0] <= 4096 else fell_back)
                 # the narrow tiles (even) keep their minima in the keys
                 assert case != "culled: three chunks" or fell_back < 32
-            if case == "past the shared memory" and perm is None:
+            if case == "every minimum finite" and perm is None:
                 # every tile minimum finite but in the tile with no live ray
                 assert want[0].tolist() == [0 if i == 3 else lo.shape[0]
                                             for i in range(64)]
         launched = (tsweep.sweep_key.launches, tsweep.sweep_spans.launches)
         calls = (tsweep.sweep_key_plain.calls, tsweep.sweep_spans_plain.calls)
-        groups = tsweep.group_boxes.launches
+        launched_groups = tsweep.group_boxes.launches
         tsweep.sweep_inputs(scene, o, d, mask, anyhit)
         sort = o.shape[0] > tsweep.TILE_R
         assert (tsweep.sweep_key.launches, tsweep.sweep_spans.launches) \
             == (launched[0] + sort, launched[1] + 1)
         # one cast's kernels share one launch of sweep_groups
-        assert tsweep.group_boxes.launches == groups + (
-            lo.shape[0] > tsweep.SMEM_CLUSTERS)
+        assert tsweep.group_boxes.launches == launched_groups + 1
         assert (tsweep.sweep_key_plain.calls,
                 tsweep.sweep_spans_plain.calls) == calls
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("c", [tsweep.SMEM_CLUSTERS + 37,
-                               SMALL_BLOCK_CLUSTERS])
+@pytest.mark.parametrize("c", [33, 484, 8192 + 37, SMALL_BLOCK_CLUSTERS])
 def test_group_boxes_kernel_equals_plain(c, loong_scale_scene):
     """csrc/sweep_prep.cu's sweep_groups equals group_boxes_plain
     (torch.equal) on random boxes with zero-thick and -0.0 coordinates and
-    on the main path's scene in blocks of 8; one launch, no plain call."""
+    on the main path's scene in blocks of 8; one launch, no plain call;
+    and sweep_key and sweep_spans refuse group boxes of another count of
+    clusters, or none."""
     dev = _card()
     if c == SMALL_BLOCK_CLUSTERS:
         scene = loong_scale_scene.build(cluster_size=8, device=dev)
@@ -510,14 +516,22 @@ def test_group_boxes_kernel_equals_plain(c, loong_scale_scene):
     want = tsweep.group_boxes_plain(lo, hi)
     torch.cuda.synchronize()
     assert got.shape == want.shape and torch.equal(got, want)
+    o, d = _rays(256, c, dev)
+    mask = torch.ones(256, dtype=torch.bool, device=dev)
+    for bad in (None, tsweep.group_boxes(lo[:-32], hi[:-32])):
+        with pytest.raises(ValueError, match="groups"):
+            tsweep.sweep_key(o, d, mask, lo, hi, bad)
+        with pytest.raises(ValueError, match="groups"):
+            tsweep.sweep_spans(o, d, mask, mask, None, lo, hi, bad)
 
 
 @pytest.mark.cuda
 def test_swept_pair_past_the_shared_memory(loong_scale_scene):
     """One whole merged cast (closest_hit_swept_pair: NEE-shadow any-hit
     rays and closest-hit rays) on the main path's scene in blocks of 8,
-    14,172 clusters: sweep_key, sweep_runs and K1 launched, no plain
-    version called, and its hits those of the plain versions on the same
+    14,172 clusters: sweep_groups, sweep_key, sweep_spans and K1 launched,
+    no plain version called, and its hits those of the plain versions on
+    the same
     inputs (sweep_key_plain, the stable sort, sweep_spans_plain,
     sweep_plain): the same triangle and inside flag on every ray, t to
     1e-6 relative (_assert_same_records)."""
@@ -529,13 +543,14 @@ def test_swept_pair_past_the_shared_memory(loong_scale_scene):
     o_c, d_c = _rays(40960, 4, dev)
     m_a = torch.rand(24576, generator=gen, device=dev) < 0.8
     m_c = torch.rand(40960, generator=gen, device=dev) < 0.9
-    launched = (tsweep.sweep_key.launches, tsweep.sweep_spans.launches,
-                tsweep.sweep.launches)
+    launched = (tsweep.group_boxes.launches, tsweep.sweep_key.launches,
+                tsweep.sweep_spans.launches, tsweep.sweep.launches)
     calls = (tsweep.sweep_key_plain.calls, tsweep.sweep_spans_plain.calls,
              tsweep.sweep_plain.calls)
     hit_a, hit_c = tsweep.closest_hit_swept_pair(scene, o_a, d_a, m_a, o_c,
                                                  d_c, m_c)
-    assert (tsweep.sweep_key.launches, tsweep.sweep_spans.launches,
+    assert (tsweep.group_boxes.launches, tsweep.sweep_key.launches,
+            tsweep.sweep_spans.launches,
             tsweep.sweep.launches) == tuple(n + 1 for n in launched)
     assert (tsweep.sweep_key_plain.calls, tsweep.sweep_spans_plain.calls,
             tsweep.sweep_plain.calls) == calls
@@ -564,17 +579,17 @@ def test_swept_pair_past_the_shared_memory(loong_scale_scene):
 @pytest.mark.parametrize("t_blk,n_rays,ctas", [
     (256, 128, 8),      # one tile: a cluster of 8 CTAs walks it
     (256, 131072, 1),   # 1,024 tiles: one CTA a tile
-    (8, 8192, 2),       # 14,172 clusters: sweep_runs prepares the cast
+    (8, 8192, 2),       # 14,172 clusters
 ])
 def test_traced_counts_equal_plain(t_blk, n_rays, ctas, loong_scale_scene):
     """Under utils/timing.py's tracing(), K1 (csrc/sweep.cu) adds the spans
     each tile walked once per tile, whatever its CTAs a tile (8, 1 and 2
-    here), and sweep_spans / sweep_runs (csrc/sweep_prep.cu) the rays that
-    are masked on and enter some cluster: the same counts as sweep_plain's
-    `visited` and sweep_spans_plain on the same inputs, the live rays those
-    whose key is not dead. k1a_pairs_tested is 0 at C <= SMEM_CLUSTERS and
-    in the plain versions, and past it the member tests _culled_pairs
-    counts."""
+    here), and sweep_spans (csrc/sweep_prep.cu) the rays that are masked
+    on and enter some cluster: the same counts as sweep_plain's `visited`
+    and sweep_spans_plain on the same inputs, the live rays those whose
+    key is not dead. k1a_pairs_tested is 0 in the plain versions and, on
+    the card, the member tests _culled_pairs counts (sweep_key's only
+    where the cast has more than one tile, which it sorts)."""
     dev = _card()
     scene = (_scene(t_blk, dev) if t_blk > 8 else
              loong_scale_scene.build(cluster_size=t_blk, device=dev))
@@ -602,29 +617,31 @@ def test_traced_counts_equal_plain(t_blk, n_rays, ctas, loong_scale_scene):
     assert plain.counters["cast_live_rays"] == live
     assert kernel.counters["cast_lanes"] == padded[0].shape[0]
     assert plain.counters["k1a_pairs_tested"] == 0
-    if lo.shape[0] <= tsweep.SMEM_CLUSTERS:
-        assert kernel.counters["k1a_pairs_tested"] == 0
-    else:
-        perm = torch.sort(tsweep.sweep_key_plain(*padded[:3], lo, hi),
-                          stable=True).indices
-        want = sum(_culled_pairs(*padded[:3], perm, lo, hi)[:2])
-        assert kernel.counters["k1a_pairs_tested"] == want
+    r = padded[0].shape[0]
+    sort = r > tsweep.TILE_R
+    perm = (torch.sort(tsweep.sweep_key_plain(*padded[:3], lo, hi),
+                       stable=True).indices if sort
+            else torch.arange(r, device=dev))
+    key_tests, spans_tests, _ = _culled_pairs(*padded[:3], perm, lo, hi)
+    want = spans_tests + (key_tests if sort else 0)
+    assert kernel.counters["k1a_pairs_tested"] == want > 0
+    if t_blk == 8:
         # these rays cross the sphere from all sides, so the cull keeps a
-        # quarter of the dense kernels' 2 x cast_pairs tests
-        assert 0 < want < kernel.counters["cast_pairs"]
+        # quarter of the all-pairs 2 x cast_pairs tests
+        assert want < kernel.counters["cast_pairs"]
 
 
 def _culled_pairs(o, d, mask, perm, lo, hi):
-    """The member slab tests that sweep_key_kernel_culled and sweep_runs
-    make on one cast (the counter k1a_pairs_tested), from the plain slab
-    test: a key warp (lanes i and i + 128 of a 256-ray CTA, two rays a
-    lane) tests group g's members if a live ray enters its box at an entry
-    below the least entry of the members before g; a warp of 32 rays of a
-    sweep_runs tile (in kernel order) if a live ray enters its box, in
+    """The member slab tests that sweep_key and sweep_spans make on one
+    cast (the counter k1a_pairs_tested), from the plain slab test: a key
+    warp (lanes i and i + 128 of a 256-ray CTA, two rays a lane) tests
+    group g's members if a live ray enters its box at an entry below the
+    least entry of the members before g; a warp of 32 rays of a
+    sweep_spans tile (in kernel order) if a live ray enters its box, in
     _runs_path's culled batches, and in every group again where the tile
     takes the runs path; 32 lanes x rays a lane x members each time.
-    Returns (sweep_key_kernel_culled's tests, sweep_runs's tests, the
-    tiles that took the runs path)."""
+    Returns (sweep_key's tests, sweep_spans's tests, the tiles that took
+    the runs path)."""
     group = tsweep.CULL_GROUP
     groups = tsweep.group_boxes_plain(lo, hi)
     c, n_groups = lo.shape[0], groups.shape[1]
@@ -672,7 +689,7 @@ def _culled_pairs(o, d, mask, perm, lo, hi):
 
 def _runs_path(entered, finite, members, c, keys_cap=4096, chunk=512,
                batch=16):
-    """sweep_runs's culled pass on one tile, from the groups it enters and
+    """sweep_spans's culled pass on one tile, from the groups it enters and
     their members with finite tile minima: (the groups whose members it
     tested, whether the tile took the runs path). Chunk by chunk of group
     boxes, after the chunk's group tests, it leaves when the entered

@@ -6,7 +6,8 @@ tile minima as unsigned integer minima of those bits), and the port's key
 cases: origins on box faces and inside boxes, direction components of
 +-0.0 and below 1e-12, boxes behind the ray. Also the SASS reader of
 probes/prep_kernels.py, on a listing in cuobjdump's form, its bytes
-bound and its synthetic case past the shared-memory path."""
+bound and its synthetic case of every tile minimum finite, and the group
+boxes the kernels cull their slab tests with."""
 
 import numpy as np
 import pytest
@@ -99,7 +100,7 @@ def test_sort_key_int32_equals_jax(seed):
 
 SASS = """
 	code for sm_90a
-		Function : _ZN12_GLOBAL__N_116sweep_key_kernelEPKfS1_PKbS1_S1_Piii
+		Function : _ZN12_GLOBAL__N_116sweep_key_kernelEPKfS1_PKbS1_S1_S1_S1_PiiiPy
         /*0000*/                   LDC R1, c[0x0][0x28] ;
         /*0010*/                   FMUL R9, R2, R3 ;
         /*0020*/                   LDS.128 R4, [R0+0x10] ;
@@ -115,7 +116,7 @@ SASS = """
         /*00c0*/              @!P0 BRA 0x20 ;
         /*00d0*/                   EXIT ;
         /*00e0*/                   BRA 0xe0;
-		Function : _ZN12_GLOBAL__N_118sweep_spans_kernelEPKfS1_PKbS3_PKxS1_S1_iiPiS6_PfS7_S7_
+		Function : _ZN12_GLOBAL__N_118sweep_spans_kernelEPKfS1_PKbS3_PKxS1_S1_S1_S1_iPiS6_PfS7_S7_PyS8_S8_
         /*0000*/                   FMUL R9, R2, R3 ;
 .L_x_1:
         /*0010*/                   FMUL R5, R5, R7 ;
@@ -157,12 +158,12 @@ def test_sass_reader_counts_per_pair():
 
 
 def test_sass_reader_keeps_to_the_named_kernels():
-    """The kernel of the path past SMEM_CLUSTERS (sweep_runs_kernel) has a
-    slab-test loop too, but its name holds neither kernel's name: the
-    per-pair counts stay those of sweep_key_kernel and sweep_spans_kernel
-    wherever its listing falls."""
-    runs = """
-		Function : _ZN12_GLOBAL__N_117sweep_runs_kernelEPKfS1_PKbS3_PKxS1_S1_iPiS6_PfS7_S7_Py
+    """Another kernel of the library (sweep_groups_kernel), here with a
+    loop of FMUL, holds neither kernel's name: the per-pair counts stay
+    those of sweep_key_kernel and sweep_spans_kernel wherever its listing
+    falls."""
+    groups = """
+		Function : _ZN12_GLOBAL__N_119sweep_groups_kernelEPKfS1_PfS2_ii
         /*0000*/                   FMUL R5, R5, R7 ;
         /*0010*/                   FMUL R6, R5, R7 ;
         /*0020*/                   FMUL R6, R5, R7 ;
@@ -175,17 +176,16 @@ def test_sass_reader_keeps_to_the_named_kernels():
 """
     want = prep_kernels.parse_sass(SASS)
     head, tail = SASS.split("\t\tFunction : _ZN12_GLOBAL__N_118sweep_spans")
-    for text in (SASS + runs, head + runs + "\t\tFunction : "
+    for text in (SASS + groups, head + groups + "\t\tFunction : "
                  "_ZN12_GLOBAL__N_118sweep_spans" + tail):
         assert prep_kernels.parse_sass(text) == want
 
 
-@pytest.mark.parametrize("c", [tsweep.SMEM_CLUSTERS,
-                               tsweep.SMEM_CLUSTERS + 1])
+@pytest.mark.parametrize("c", [8192, 8193])
 def test_prep_bound_counts_the_runs_scratch(c):
-    """prep_kernels.bounds: past SMEM_CLUSTERS clusters sweep_spans's bytes
+    """prep_kernels.bounds: at every cluster count sweep_spans's bytes
     add its (G, C) scratch of 8-byte keys, written once and read once;
-    sweep_key's bytes and the pairs do not change."""
+    sweep_key's bytes and the pairs count every (ray, cluster) pair."""
     r = 4 * tsweep.TILE_R
     o = torch.zeros((r, 3))
     m = torch.ones(r, dtype=torch.bool)
@@ -196,7 +196,7 @@ def test_prep_bound_counts_the_runs_scratch(c):
     assert key[3] == pytest.approx((r * 29 + c * 24) * per_byte)
     g = r // tsweep.TILE_R
     plain = r * 34 + c * 24 + g * 4 + g * c * 8 + r * 96
-    scratch = 2 * g * c * 8 if c > tsweep.SMEM_CLUSTERS else 0
+    scratch = 2 * g * c * 8
     assert spans[3] == pytest.approx((plain + scratch) * per_byte)
 
 
@@ -207,7 +207,7 @@ def test_finite_case_enters_every_box():
     nspan is C in every tile."""
     boxes, (o, d, mask, anyhit) = prep_kernels.finite_case("cpu", 256)
     lo, hi = boxes.cl_aabb_min, boxes.cl_aabb_max
-    assert lo.shape[0] == tsweep.SMEM_CLUSTERS + 1
+    assert lo.shape[0] == 8193
     tn = tsweep.cluster_tnear(o, d, lo, hi)
     want = np.asarray(jax_cluster_tnear(*(jnp.asarray(x.numpy())
                                           for x in (o, d, lo, hi))))
@@ -218,10 +218,11 @@ def test_finite_case_enters_every_box():
 
 
 def test_sass_reader_tells_the_culled_kernel_apart():
-    """sweep_key_kernel_culled (the key kernel past SMEM_CLUSTERS) holds
-    sweep_key_kernel's name in its own and a loop with a slab test, but
-    the per-pair counts stay those of sweep_key_kernel wherever its
-    listing falls."""
+    """A kernel whose name holds sweep_key_kernel's inside a longer one
+    (sweep_key_kernel_culled, which an older tree's library held beside
+    the all-pairs key kernel, and a copy of the probe reads there), with a
+    loop with a slab test: the per-pair counts stay those of
+    sweep_key_kernel wherever its listing falls."""
     culled = """
 		Function : _ZN12_GLOBAL__N_123sweep_key_kernel_culledEPKfS1_PKbS1_S1_S1_S1_PiiiPy
         /*0000*/                   FMUL R5, R5, R7 ;
@@ -240,8 +241,7 @@ def test_sass_reader_tells_the_culled_kernel_apart():
         assert prep_kernels.parse_sass(text) == want
 
 
-@pytest.mark.parametrize("c", [1, 31, 32, 33, tsweep.SMEM_CLUSTERS + 37,
-                               14172])
+@pytest.mark.parametrize("c", [1, 31, 32, 33, 484, 8229, 14172])
 def test_group_boxes_equal_numpy_min_max(c):
     """group_boxes (group_boxes_plain on the CPU) is, for each run of
     CULL_GROUP consecutive clusters, the numpy min of their cl_min and max
@@ -386,7 +386,7 @@ def test_group_box_covers_its_members(boxes, kind, cull_boxes):
 
 
 def test_k1a_pairs_tested_stays_zero_on_the_cpu():
-    """Under tracing() on the CPU a cast past SMEM_CLUSTERS clusters runs
+    """Under tracing() on the CPU a cast (here of 8,193 clusters) runs
     the plain versions, which test every pair and count none in
     k1a_pairs_tested; cast_pairs still counts R x C."""
     from types import SimpleNamespace
@@ -400,28 +400,7 @@ def test_k1a_pairs_tested_stays_zero_on_the_cpu():
                             cl_trifeat=torch.zeros((c, 16, 4)))
     with timing.tracing("cpu") as rec:
         tsweep.sweep_inputs(scene, o, d, mask, anyhit)
-    assert c > tsweep.SMEM_CLUSTERS
+    assert c == 8193
     assert rec.counters["k1a_pairs_tested"] == 0
     assert rec.counters["cast_pairs"] == 256 * c
-    assert rec.counters["cast_runs"] == 1
 
-
-def test_culled_groups_takes_the_callers_boxes():
-    """The group boxes a cast's two kernels share (ops/sweep.py
-    _culled_groups): none at C <= SMEM_CLUSTERS, where the kernels test
-    every pair; past it the caller's boxes as given, group_boxes when the
-    caller has none, and a ValueError for boxes of another shape or
-    dtype."""
-    c = tsweep.SMEM_CLUSTERS + 37
-    rng = np.random.default_rng(c)
-    lo = torch.tensor(rng.uniform(-5, 5, (c, 3)).astype(np.float32))
-    hi = lo + 1
-    cpu = torch.device("cpu")
-    small = tsweep.SMEM_CLUSTERS
-    assert tsweep._culled_groups("t", cpu, lo[:small], hi[:small]) is None
-    groups = tsweep.group_boxes_plain(lo, hi)
-    assert tsweep._culled_groups("t", cpu, lo, hi, groups) is groups
-    assert torch.equal(tsweep._culled_groups("t", cpu, lo, hi), groups)
-    for bad in (groups[:, :-1].contiguous(), groups.double()):
-        with pytest.raises(ValueError, match="groups"):
-            tsweep._culled_groups("t", cpu, lo, hi, bad)

@@ -1,9 +1,8 @@
 """PyTorch port, scenes past 8,192 clusters on the CPU: the benchmark's
 reference for such scenes (benchmark/reference/cast_blocks.py) gives its
-plain Caster's closest hits; a render of 14,000-odd clusters (the path
-that takes csrc/sweep_prep.cu's sweep_runs on the card) holds against the
-plain reference within glass5m.fwd's limits; the scene build's spans and
-the casts' pair and run counters exist only inside tracing()."""
+plain Caster's closest hits; a render of 14,000-odd clusters holds
+against the plain reference within glass5m.fwd's limits; the scene build's
+spans and the casts' pair counter exist only inside tracing()."""
 
 import time
 
@@ -54,7 +53,7 @@ def test_block_caster_gives_the_casters_hits(any_hit):
 
 def _past_smem(cell):
     """glass5m.fwd on the CPU: the sphere of 6 subdivisions in blocks of
-    8 triangles (more clusters than SMEM_CLUSTERS), a 32x16 frame."""
+    8 triangles (more than 8,192 clusters), a 32x16 frame."""
     c = cell.config
     c["frame"].update(width=32, height=16, max_bounce=2)
     c["environment"].update(width=64, height=32)
@@ -67,7 +66,7 @@ def _past_smem(cell):
 
 
 def test_render_past_smem_clusters_holds(monkeypatch):
-    """Every cast of the render has C > SMEM_CLUSTERS, and the passes hold
+    """Every cast of the render has C > 8,192, and the passes hold
     against the plain reference within the cell's own limits."""
     scene_mod = run.program.port("models.scene")
     seen = {}
@@ -88,7 +87,7 @@ def test_render_past_smem_clusters_holds(monkeypatch):
                       time.perf_counter())
     line = run.result_line(cell, out, False, torch.device("cpu"))
     assert line["correct"] is True, line["check"]
-    assert seen["clusters"] > tsweep.SMEM_CLUSTERS
+    assert seen["clusters"] > 8192
     assert {"rt.build", "rt.build.bvh", "rt.build.clusters",
             "rt.build.env", "rt.build.upload"} <= set(seen["spans"])
     limits = cells.load("glass5m.fwd").workload["limits"]
@@ -123,19 +122,16 @@ def test_build_spans_and_cast_counters_only_when_tracing():
     c = scene.cl_aabb_min.shape[0]
     assert rec.counters["casts"] > 0
     assert rec.counters["cast_pairs"] == rec.counters["cast_lanes"] * c
-    assert rec.counters["cast_runs"] == 0 < c <= tsweep.SMEM_CLUSTERS
 
 
-def test_cast_runs_counts_casts_past_smem(monkeypatch):
-    """A cast counts one run when the scene has more clusters than
-    SMEM_CLUSTERS (here lowered below the test scene's)."""
+def test_cast_pairs_counts_padded_rays_times_clusters():
+    """Each cast adds its rays, padded to whole 128-ray tiles, times the
+    scene's clusters to cast_pairs."""
     _, scene = build_test_scene(2, device="cpu")
     c = scene.cl_aabb_min.shape[0]
-    monkeypatch.setattr(tsweep, "SMEM_CLUSTERS", c - 1)
     origin, direction = _rays(300, 2)
     with timing.tracing("cpu") as rec:
         tsweep.closest_hit_swept(scene, origin, direction)
         tsweep.closest_hit_swept(scene, origin[:100], direction[:100])
-    assert rec.counters["cast_runs"] == 2
     assert rec.counters["cast_pairs"] == (384 + 128) * c
     assert np.isfinite(c)

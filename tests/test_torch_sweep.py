@@ -57,14 +57,13 @@ def many_cluster_scenes():
 def small_block_scenes():
     """The 81,922-triangle scene of the main path in cluster blocks of 8:
     14,172 clusters, more than csrc/sweep_prep.cu's sweep_spans holds in
-    shared memory (SMEM_CLUSTERS), so the card takes its sorted runs
-    (sweep_runs). Built once in each package; the port's build equals
-    JAX's."""
+    its keys, so the card's tiles can take its sorted runs. Built once in
+    each package; the port's build equals JAX's."""
     jsc, _ = jax_build_test_scene(n_sphere_subdiv=6)
     jdata = jsc.build(cluster_size=8)
     tdata = torch_build_test_scene(6, device="cpu")[0].build(
         cluster_size=8, device="cpu")
-    assert tdata.cl_aabb_min.shape[0] == 14172 > tsweep.SMEM_CLUSTERS
+    assert tdata.cl_aabb_min.shape[0] == 14172 > 8192
     assert_same_scene(tdata, jax_scene_arrays(jdata))
     return jdata, tdata
 
@@ -299,7 +298,7 @@ def test_sweep_inputs_equal_jax_swept_impl_steps(fixture, n_rays, masked,
     _swept_impl: the key, the permutation, the span lists, the caps, the
     ray features and the records; with masked lanes, R no multiple of 128
     (padded) and R <= 128 (one tile, no sort), at 161 clusters and at
-    14,172 (past the card's shared-memory path). Exact: the two CPU
+    14,172 (where the card's tiles can take sorted runs). Exact: the two CPU
     libraries round the slab test and the cross product alike; their
     atan2 differs in the last bit on about a sixth of inputs, which moves
     a key only where phi lies within that bit of a bucket edge (none
@@ -326,7 +325,8 @@ def test_sweep_inputs_equal_jax_swept_impl_steps(fixture, n_rays, masked,
     for x, y in zip(padded_port, padded):
         assert torch.equal(x, y)
     if sort:
-        key = tsweep.sweep_key(*padded, tdata.cl_aabb_min, tdata.cl_aabb_max)
+        lo, hi = tdata.cl_aabb_min, tdata.cl_aabb_max
+        key = tsweep.sweep_key(*padded, lo, hi, tsweep.group_boxes(lo, hi))
         np.testing.assert_array_equal(key.numpy(), np.asarray(want_key))
         assert (key.numpy() != (1 << 30)).sum() > 100   # live keys
         np.testing.assert_array_equal(perm.numpy(), np.asarray(want_perm))
