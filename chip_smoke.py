@@ -10,10 +10,10 @@ when torch sees no CUDA device, and when anything below fails:
  2. build: nvcc compiles every source of csrc/ (sweep.cu, the span-sweep
     kernel K1; sweep_prep.cu, K1's preparation kernels sweep_groups,
     sweep_key and sweep_spans; cluster_intersect.cu, the cluster-intersect kernel K2;
-    shade.cu, the forward bounce's shading kernels shade_bsdf and
-    shade_nee; the four probe kernels probe_copy, probe_gather,
-    probe_smem (with the empty launch-floor kernel), probe_stream),
-    all started together;
+    shade.cu, the forward bounce's shading kernels shade_light,
+    shade_bsdf and shade_env; the four probe kernels probe_copy,
+    probe_gather, probe_smem (with the empty launch-floor kernel),
+    probe_stream), all started together;
  3. K1 against its plain version on the card, at the main path's shapes:
     the 81,922-triangle procedural scene (loong-100k's scale), a
     65,536-ray primary cast, the first bounce's merged NEE-shadow + bounce
@@ -58,7 +58,8 @@ when torch sees no CUDA device, and when anything below fails:
     sweep tracer; one warm-up pass and two timed passes, each fenced by a
     host copy; K1 and both preparation kernels must be launched, with one
     sweep_groups a cast, and their plain versions never called, and the
-    shading kernels shade_bsdf and shade_nee once a bounce each;
+    shading kernels shade_light, shade_bsdf and shade_env once a bounce
+    each (as many launches of each, at most one a bounce of a batch);
  6. card against CPU: render_radiance at 128x64, 2 spp, 8 bounces, on the
     card (kernel) and on the CPU (plain version), held to the hardware
     lane's image criterion (tests/test_tpu.py:57-60); then the same on
@@ -102,13 +103,16 @@ when torch sees no CUDA device, and when anything below fails:
     assumes: a time below the bound fails the run. The time with the
     inputs left in L2 is printed beside it and goes nowhere else;
     Then the shading kernels (probes/shade_kernels.py) at 131,072 random
-    lanes that reach every lobe and medium, held to the plain halves:
-    shade_bsdf's alive and med_sampled equal on at least 99.99% of the
-    lanes, and there every output of each kernel within
-    tests/test_torch_shade.py's close_ill_conditioned limits (1e-5 +
-    1e-5 relative on all but 0.2% of the values, 1e-5 + 1e-4 relative
-    on all); each kernel's time (from HBM) no less than its bytes bound,
-    beside the plain halves' time;
+    lanes (hits on random triangles, materials read by id that reach
+    every lobe and medium, a random environment), held to the plain
+    versions: each kernel's decisions (shade_light: facing, the material
+    id, the light sample's texel; shade_bsdf: the lobe, alive and
+    med_sampled; shade_env: the miss texel) equal on at least 99.99% of
+    the lanes, and there every output within tests/test_torch_shade.py's
+    close_ill_conditioned limits (1e-5 + 1e-5 relative on all but 0.2% of
+    the values, 1e-5 + 1e-4 relative on all); each kernel's time (from
+    HBM) no less than its bytes bound, beside the plain versions' time and
+    the wrapper's host time a call;
 11. the probes as a user runs them (probes/launch_overhead.py, gather.py,
     card_perf.py, kernel_build.py): microseconds per CTA, lookups per
     second from global and shared memory, the chained lookups at every S,
@@ -122,8 +126,8 @@ when torch sees no CUDA device, and when anything below fails:
     material, one warm-up and one timed step fenced by a host copy of the
     gradients: loss and every gradient finite, one nonzero, the forward
     pass's count of K1 launches and not one more (the backward launches no
-    kernel) and neither shading kernel (autograd records the plain
-    halves), no plain call; camera_grad and geometry_grad at 128x64;
+    kernel) and no shading kernel (autograd records the plain code), no
+    plain call; camera_grad and geometry_grad at 128x64;
     material_grad at 128x64 on the scene in blocks of 1,024 against the
     same step on blocks of 256 (loss to rtol 1e-5, leaves to 2e-4 of their
     largest entry); card
@@ -189,7 +193,8 @@ other probe kernels have one each (an add of a slice, index_select,
 embedding_bag), timed here and used nowhere in the port. The kernels line
 has one entry per kernel: csrc/probe_gather.cu holds two, the gather
 (probe_gather) and the chained lookups (probe_chained), and csrc/shade.cu
-two, shade_bsdf and shade_nee, which replace no TPU kernel; and
+three, shade_light, shade_bsdf and shade_env, which replace no TPU kernel;
+and
 csrc/sweep_prep.cu three, sweep_key and sweep_spans (their main case the
 pair on 484 clusters) and sweep_groups (which replaces no TPU kernel; its
 main case the 30,741 random boxes), their launches phase 5's.
@@ -233,6 +238,7 @@ PORT = "opengl_ray_tracing_framework_tpu_torch"
 EXPECTED_KERNELS = {"sweep", "sweep_prep", "cluster_intersect", "shade",
                     "probe_copy", "probe_gather", "probe_smem",
                     "probe_stream"}
+SHADE_KERNELS = ("shade_light", "shade_bsdf", "shade_env")   # shade.cu's
 
 
 def fail(msg: str) -> None:
@@ -721,7 +727,8 @@ def grad_phases(ortf, scene, camera, config, k1_per_pass, wide_scene):
         sw.sweep.launches = 0
         sw.sweep_plain.calls = 0
         ci.cluster_intersect.launches = 0
-        shade.shade_bsdf.launches = shade.shade_nee.launches = 0
+        for k in SHADE_KERNELS:
+            getattr(shade, k).launches = 0
         t0 = time.perf_counter()
         loss, grads = autodiff.material_grad(
             scene, camera, target, config, spp=1,
@@ -744,7 +751,7 @@ def grad_phases(ortf, scene, camera, config, k1_per_pass, wide_scene):
                  "must launch none")
         if plain_calls or ci.cluster_intersect.launches:
             fail("material_grad left the sweep kernel's path")
-        if shade.shade_bsdf.launches or shade.shade_nee.launches:
+        if any(getattr(shade, k).launches for k in SHADE_KERNELS):
             fail("material_grad launched a shading kernel, which has no "
                  "backward")
     material_ref = dict(target=target, loss=loss, grads=grads)
@@ -1691,7 +1698,8 @@ def main() -> int:
     sw.sweep_key_plain.calls = sw.sweep_spans_plain.calls = 0
     ci.cluster_intersect.launches = 0
     ci.cluster_intersect_plain.calls = 0
-    shade.shade_bsdf.launches = shade.shade_nee.launches = 0
+    for k in SHADE_KERNELS:
+        getattr(shade, k).launches = 0
     first_passes = []   # phase 14 holds the sharded passes against them
     img, pass_s = timed_passes(ortf, scene, camera, config, 3,
                                keep=first_passes)
@@ -1704,6 +1712,7 @@ def main() -> int:
     mean_s = sum(timed) / len(timed)
     peak = torch.cuda.max_memory_allocated()
     mean = check_image("render", img)
+    shade_counts = [str(getattr(shade, k).launches) for k in SHADE_KERNELS]
     print(f"render: sweep tracer, {WIDTH}x{HEIGHT}, {BOUNCES} bounces, 3 "
           f"passes | warm-up {pass_s[0]:.3f} s, timed "
           f"{', '.join(f'{s:.3f}' for s in timed)} s, mean {mean_s:.3f} s | "
@@ -1715,13 +1724,17 @@ def main() -> int:
           f"({prep_launches['sweep_groups'] // 3} / "
           f"{prep_launches['sweep_key'] // 3} / "
           f"{prep_launches['sweep_spans'] // 3} per pass), plain calls "
-          f"{prep_plain[0]} / {prep_plain[1]} | shade_bsdf / shade_nee "
-          f"launches {shade.shade_bsdf.launches} / {shade.shade_nee.launches}"
-          f" | image mean {mean:.4f}")
+          f"{prep_plain[0]} / {prep_plain[1]} | shade_light / shade_bsdf / "
+          f"shade_env launches {' / '.join(shade_counts)} | image mean "
+          f"{mean:.4f}")
     shade_launches = shade.shade_bsdf.launches
-    if not 0 < shade.shade_nee.launches == shade_launches:
-        fail(f"the render launched shade_bsdf {shade_launches} and "
-             f"shade_nee {shade.shade_nee.launches} times")
+    bounce_batches = 3 * BOUNCES * -(-WIDTH * HEIGHT // RAYS_PER_TILE)
+    if not (0 < shade_launches <= bounce_batches and all(
+            getattr(shade, k).launches == shade_launches
+            for k in SHADE_KERNELS)):
+        fail("the render launched shade_light / shade_bsdf / shade_env "
+             f"{[getattr(shade, k).launches for k in SHADE_KERNELS]} times: "
+             f"one of each a bounce, at most {bounce_batches}")
     if k1_launches <= 0:
         fail("the render launched no sweep kernel")
     if plain_calls != 0:
@@ -1871,7 +1884,7 @@ def main() -> int:
     # gradient path
     probe_entries, probe_counts = probe_phases(scene, camera, config)
     shaded = shade_kernels.run()
-    for name in ("shade_bsdf", "shade_nee"):
+    for name in SHADE_KERNELS:
         row = shaded[name]
         if not row["within"] or row["us"] < row["bound_us"]:
             fail(f"{name}: {row}")
@@ -1931,7 +1944,7 @@ def main() -> int:
            "plain_ms": shaded[name]["plain_ms"],
            "bound_ms": shaded[name]["bound_us"] / 1e3,
            "bound_by": shaded[name]["bound_by"], "library_ms": None}
-          for name in ("shade_bsdf", "shade_nee")),
+          for name in SHADE_KERNELS),
         *({**probe_entries[name], "launches": probe_counts[name]}
           for name in ("probe_copy", "probe_gather", "probe_chained",
                        "probe_smem", "probe_stream")),

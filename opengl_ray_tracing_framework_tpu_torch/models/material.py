@@ -12,6 +12,8 @@ and equals the index exactly for its 0/1 weights).
 from __future__ import annotations
 
 import dataclasses
+import functools
+import itertools
 from typing import NamedTuple
 
 import torch
@@ -100,9 +102,21 @@ class Material(NamedTuple):
         return ax, ay
 
 
+# The packed table's layout (MaterialTable.packed): each Material field in
+# order, the colors three columns wide; csrc/shade.cu reads the same columns.
+_WIDTHS = [3 if f in ("emissive", "base_color", "medium_color") else 1
+           for f in Material._fields]
+PACKED_COLUMNS = dict(zip(Material._fields,
+                          itertools.accumulate([0] + _WIDTHS[:-1])))
+PACKED_WIDTH = sum(_WIDTHS)
+
+
 @dataclasses.dataclass
 class MaterialTable:
-    """Stacked materials: a Material whose fields have leading dim M."""
+    """Stacked materials: a Material whose fields have leading dim M.
+
+    A table is not edited in place: replace_material and to() make new
+    tables, so what `packed` caches follows every edit."""
 
     mat: Material
 
@@ -114,6 +128,16 @@ class MaterialTable:
     @property
     def count(self) -> int:
         return self.mat.emissive.shape[0]
+
+    @functools.cached_property
+    def packed(self) -> torch.Tensor:
+        """Every field as one contiguous (M, PACKED_WIDTH) float32 table,
+        packed once per table: csrc/shade.cu reads a lane's material by
+        its id from it. medium_type is stored as a float, exact for the
+        small ids it holds. Detached: the kernels that read it have no
+        backward."""
+        return torch.cat([x.detach().reshape(x.shape[0], -1).to(torch.float32)
+                          for x in self.mat], dim=1).contiguous()
 
     def to(self, device) -> "MaterialTable":
         return MaterialTable(mat=Material(*(x.to(device) for x in self.mat)))

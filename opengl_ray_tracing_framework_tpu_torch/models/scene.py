@@ -91,6 +91,14 @@ class SceneData:
         edit; the differentiable parameter of material_grad)."""
         return dataclasses.replace(self, materials=materials)
 
+    def material_ids(self, tri_idx: torch.Tensor) -> torch.Tensor:
+        """int32 material slots of triangle ids, both clamped as
+        material_of clamps them: what csrc/shade.cu's kernels read a
+        lane's material by."""
+        safe = torch.clamp(tri_idx, 0, self.n_triangles - 1).long()
+        return torch.clamp(self.tri_attr[18, safe].long(), 0,
+                           self.materials.count - 1).to(torch.int32)
+
     def material_of(self, tri_idx: torch.Tensor) -> Material:
         safe = torch.clamp(tri_idx, 0, self.n_triangles - 1).long()
         return self.materials.gather(self.tri_attr[18, safe].long())

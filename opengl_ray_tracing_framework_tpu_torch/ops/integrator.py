@@ -32,12 +32,16 @@ the output is an in-place index_put_: nothing saved for the backward reads
 that tensor, and a lane a later bounce overwrites gets its gradient from
 that later write only, which is the compaction's exactness argument again.
 
-The BSDF bounce's shading before and after its cast is ops/shade.py's
-two halves: csrc/shade.cu's kernels on a CUDA device when autograd records
-nothing, the plain PyTorch versions otherwise.
+The BSDF bounce's shading is ops/shade.py's: on a CUDA device, when
+autograd records nothing and the env map is sampled at its nearest
+texels, one csrc/shade.cu kernel at each of its three sites (shade_light,
+shade_bsdf, shade_env); otherwise the plain PyTorch code, which is their
+specification and what the CPU and the gradient paths run.
 
 Spans (utils/timing.py's tracing()): rt.bounce around each bounce, inside
-it rt.shade.surface / .light / .bsdf / .env and the cast's rt.cast, and
+it rt.shade.surface / .light / .bsdf / .env and the cast's rt.cast (the
+kernels' bounce: shade_light in rt.shade.light, shade_bsdf in .bsdf,
+shade_env in .env), and
 rt.sync around each torch.nonzero of the compaction, the render loop's
 only waits on the device; counters bounces, bounce_lanes (live lanes at a
 bounce's start, known on the host after the nonzero) and syncs.
@@ -48,15 +52,8 @@ from __future__ import annotations
 import torch
 
 from ..utils.timing import count, span
-from . import disney
-from .envmap import (
-    default_sky_color,
-    env_radiance_pdf_nearest,
-    env_sample_nearest,
-    hdr_color,
-    hdr_pdf,
-    sample_hdr_direction,
-)
+from . import disney, shade
+from .envmap import default_sky_color, hdr_color
 from .intersect import surface_attributes
 from .sampling import (
     cranley_patterson,
@@ -67,10 +64,16 @@ from .sampling import (
 )
 from .shade import (
     EPS_PDF,
+    env_miss_radiance_pdf,
+    env_pickup,
+    light_sample,
     mis_weight,
     safe_rcp,
     shade_bsdf,
-    shade_nee,
+    shade_bsdf_plain,
+    shade_env,
+    shade_light,
+    shade_nee_plain,
 )
 from .traverse import closest_hit, closest_hit_pair
 
@@ -80,32 +83,6 @@ def _env_radiance(scene, direction, config):
         return hdr_color(scene.hdr_map, direction, scene.env_angle) \
             * scene.env_intensity
     return default_sky_color(direction[..., 1])
-
-
-def _env_nee_sample(scene, config, hh, ww, xl1, xl2):
-    """In-loop NEE light sample -> (direction, pdf, radiance): one row
-    fetch from the fused table, or the reference's three GL_LINEAR fetches
-    under config.env_bilinear (SampleHdr glsl:635-646, hdrPdf
-    glsl:1173-1186, hdrColor glsl:1165-1169; only the pdf/radiance lookups
-    add env_angle)."""
-    if config.env_bilinear:
-        l_dir = sample_hdr_direction(scene.hdr_cache, xl1, xl2)
-        pdf = hdr_pdf(scene.hdr_cache, l_dir, scene.env_angle, ww, hh)
-        fr = hdr_color(scene.hdr_map, l_dir, scene.env_angle)
-        return l_dir, pdf, fr
-    return env_sample_nearest(scene.env_fetch, hh, ww, xl1, xl2,
-                              scene.env_angle)
-
-
-def _env_miss_radiance_pdf(scene, config, hh, ww, direction):
-    """Bounce-miss environment radiance + pdf (the MIS pickup site,
-    glsl:1483-1506)."""
-    if config.env_bilinear:
-        fr = hdr_color(scene.hdr_map, direction, scene.env_angle)
-        pdf = hdr_pdf(scene.hdr_cache, direction, scene.env_angle, ww, hh)
-        return fr, pdf
-    return env_radiance_pdf_nearest(scene.env_fetch, hh, ww, direction,
-                                    scene.env_angle)
 
 
 def trace_radiance(scene, origin, direction, pixel_id, frame: int, config):
@@ -122,65 +99,77 @@ def trace_radiance(scene, origin, direction, pixel_id, frame: int, config):
     return torch.where(hit0.is_hit[..., None], le0 + lo, miss_rgb)
 
 
+def _takes_kernels(scene, config, origin, direction, history, lo):
+    """Whether _bounce runs csrc/shade.cu's kernels: the env map sampled at
+    its nearest texels, and shade.use_kernels on the bounce's inputs (the
+    card, and no autograd recording the scene's or the rays' tensors),
+    asked through the module so that a test can stand in for it."""
+    return (config.enable_env_map and not config.env_bilinear
+            and shade.use_kernels(origin.device, (
+                origin, direction, history, lo, scene.tri_attr,
+                *scene.materials.mat)))
+
+
 def _bounce(scene, b, frame, sobol_point, config, pid, origin, direction,
             t, tri, inside, history, lo):
     """One bounce of glsl:1369-1516 for rays alive at its start. Returns
     the rays' (lo, history, next origin, next direction, next hit, alive)."""
+    if _takes_kernels(scene, config, origin, direction, history, lo):
+        return _bounce_kernels(scene, b, frame, sobol_point, config, pid,
+                               origin, direction, t, tri, inside, history, lo)
     with span("rt.shade.surface"):
         hit_point, n, v, mat = surface_attributes(scene, origin, direction,
                                                   t, tri, inside)
-    hh, ww = scene.hdr_map.shape[0], scene.hdr_map.shape[1]
 
     # 1. next-event estimation: draw the light sample (its shadow ray is
     # traced with the bounce ray below)
     if config.enable_env_map:
         with span("rt.shade.light"):
-            xl1 = rand01(pid, frame, 8 * b + 0)
-            xl2 = rand01(pid, frame, 8 * b + 1)
-            l_dir, light_pdf, light_fr = _env_nee_sample(
-                scene, config, hh, ww, xl1, xl2)
-            light_fr = light_fr * scene.env_intensity
-            facing = torch.sum(n * l_dir, dim=-1) > 0.0
+            l_dir, light_pdf, light_fr, facing = light_sample(
+                scene, config, b, frame, pid, n)
 
-    # 2-3. sample the BSDF and the media; on the card, when autograd
-    # records nothing, this and the NEE's contribution are one kernel each
+    # 2-3. sample the BSDF and the media
     with span("rt.shade.bsdf"):
-        lo, new_history, new_org, new_dir, alive, med_sampled, pdf_for_mis \
-            = shade_bsdf(b, frame, sobol_point, pid, mat, v, n, hit_point,
-                         direction, t, history, lo)
+        half = shade_bsdf_plain(b, frame, sobol_point, pid, mat, v, n,
+                                hit_point, direction, t, history, lo)
 
     # 4. shadow + bounce rays in one cast
     if config.enable_env_map:
         shadow, nxt = closest_hit_pair(scene, hit_point, l_dir, facing,
-                                       new_org, new_dir, alive, config)
+                                       half.origin, half.direction,
+                                       half.alive, config)
         with span("rt.shade.light"):
-            lo = shade_nee(mat, v, n, l_dir, light_pdf, light_fr, facing,
-                           shadow.is_hit, history, lo, config.enable_mis)
+            lo = shade_nee_plain(mat, v, n, l_dir, light_pdf, light_fr,
+                                 facing, shadow.is_hit, history, half.lo,
+                                 config.enable_mis)
     else:
-        nxt = closest_hit(scene, new_org, new_dir, config, mask=alive)
+        nxt = closest_hit(scene, half.origin, half.direction, config,
+                          mask=half.alive)
+        lo = half.lo
 
     with span("rt.shade.env"):
-        nxt_miss = alive & ~nxt.is_hit
-        if config.enable_env_map:
-            env_fr, light_pdf2 = _env_miss_radiance_pdf(
-                scene, config, hh, ww, new_dir)
-            env_fr = env_fr * scene.env_intensity
-            w2 = mis_weight(pdf_for_mis, light_pdf2)
-            if not config.enable_mis:
-                w2 = torch.ones_like(w2)
-            # phase-sampled lanes have no competing NEE: full weight
-            w2 = torch.where(med_sampled, 1.0, w2)
-            lo = lo + torch.where(nxt_miss[..., None],
-                                  w2[..., None] * new_history * env_fr, 0.0)
-        else:
-            sky = default_sky_color(new_dir[..., 1])
-            lo = lo + torch.where(nxt_miss[..., None], new_history * sky,
-                                  0.0)
+        lo = env_pickup(scene, config, half, nxt.tri, lo)
+    return lo, half.history, half.origin, half.direction, nxt, half.alive
 
-        le = scene.material_of(nxt.tri).emissive
-        lo = lo + torch.where((alive & nxt.is_hit)[..., None],
-                              new_history * le, 0.0)
-    return lo, new_history, new_org, new_dir, nxt, alive
+
+def _bounce_kernels(scene, b, frame, sobol_point, config, pid, origin,
+                    direction, t, tri, inside, history, lo):
+    """_bounce on the card, one kernel at each site: shade_light before the
+    cast, shade_bsdf, and shade_env after it; the same values as the plain
+    code (ops/shade.py)."""
+    with span("rt.shade.light"):
+        surface = shade_light(scene, config, b, frame, pid, origin,
+                              direction, t, tri, inside)
+    with span("rt.shade.bsdf"):
+        half = shade_bsdf(b, frame, sobol_point, pid, scene.materials,
+                          surface, direction, t, history, lo)
+    shadow, nxt = closest_hit_pair(scene, surface.hit_point, surface.l_dir,
+                                   surface.facing, half.origin,
+                                   half.direction, half.alive, config)
+    with span("rt.shade.env"):
+        lo = shade_env(scene, config, surface, direction, history, half,
+                       shadow.tri, nxt.tri)
+    return lo, half.history, half.origin, half.direction, nxt, half.alive
 
 
 def _bounce_brdf(scene, b, frame, sobol_point, config, pid, origin,
@@ -194,16 +183,11 @@ def _bounce_brdf(scene, b, frame, sobol_point, config, pid, origin,
         hit_point, n, v, mat = surface_attributes(scene, origin, direction,
                                                   t, tri, inside)
         tangent, bitangent = onb(n)
-    hh, ww = scene.hdr_map.shape[0], scene.hdr_map.shape[1]
 
     if config.enable_env_map:
         with span("rt.shade.light"):
-            xl1 = rand01(pid, frame, 8 * b + 0)
-            xl2 = rand01(pid, frame, 8 * b + 1)
-            l_dir_nee, light_pdf, light_fr = _env_nee_sample(
-                scene, config, hh, ww, xl1, xl2)
-            light_fr = light_fr * scene.env_intensity
-            facing = torch.sum(n * l_dir_nee, dim=-1) > 0.0
+            l_dir_nee, light_pdf, light_fr, facing = light_sample(
+                scene, config, b, frame, pid, n)
 
     with span("rt.shade.bsdf"):
         u, vv = sobol_bounce_uv(sobol_point, b)
@@ -238,8 +222,8 @@ def _bounce_brdf(scene, b, frame, sobol_point, config, pid, origin,
     with span("rt.shade.env"):
         nxt_miss = alive & ~nxt.is_hit
         if config.enable_env_map:
-            env_fr, light_pdf2 = _env_miss_radiance_pdf(
-                scene, config, hh, ww, l_dir)
+            env_fr, light_pdf2 = env_miss_radiance_pdf(scene, config,
+                                                       l_dir)
             env_fr = env_fr * scene.env_intensity
             w2 = mis_weight(pdf_brdf, light_pdf2)
             lo = lo + torch.where(nxt_miss[..., None],

@@ -1,63 +1,88 @@
-"""csrc/shade.cu's two kernels alone on the card, at the main path's
+"""csrc/shade.cu's three kernels alone on the card, at the main path's
 131,072 lanes a batch, beside their plain versions and their bounds:
 
     python -m opengl_ray_tracing_framework_tpu_torch.probes.shade_kernels
 
-Each kernel runs on ops/shade.py's random lanes (every lobe and medium),
-timed by probes.hbm_ms (CUDA-graph launches rotating over copies of the
-inputs, so they come from HBM); its plain version by probes.cuda_ms, the
-time a bounce spent on the same work before the kernels (hundreds of
-launches). The bound is the larger of the bytes a lane moves
-(ops/shade.py LANE_BYTES) over the HBM rate and the lane's FP32 operations
-over the FP32 peak, the operations counted from the kernel's SASS: the
-kernels have no loop, so a lane executes each instruction at most once
-(the slow paths of division and square root aside), and FFMA counts two.
-Registers, stack and spills come from a fresh nvcc build's ptxas lines.
-Each kernel is also held to its plain version on the same lanes, by
-tests/test_torch_shade.py's close_ill_conditioned limits: the share of
-lanes whose alive and med_sampled agree (shade_bsdf; shade_nee decides
-nothing), and on those lanes the share of output values off by more than
-1e-5 + 1e-5 |plain| (at most 0.2%), the count off by more than
-1e-5 + 1e-4 |plain| (none), the share of lanes whose outputs are all
-bit-equal, and the largest absolute and relative difference. `within`
-says whether the limits hold. Prints one JSON line.
+Each kernel runs on random_lanes (hits on random triangles, every lobe and
+medium, a random environment), timed by probes.hbm_ms (CUDA-graph launches
+rotating over copies of the inputs, so they come from HBM); its plain
+version by probes.cuda_ms, the time a bounce spent on the same work before
+the kernels (hundreds of launches); its wrapper by the host time of a
+Python loop of calls (the kernels run behind it). The bound is the larger
+of the bytes the launch moves over the HBM rate (LANE_BYTES a lane, each
+table row that some lane reads counted once) and the lanes' FP32
+operations over the FP32 peak, the operations counted from the kernel's
+SASS: the kernels have no loop, so a lane executes each instruction at
+most once (the slow paths of division and square root aside), and FFMA
+counts two. Registers, stack and spills come from a fresh nvcc build's
+ptxas lines. Each kernel is also held to its plain version on the same
+lanes, by tests/test_torch_shade.py's close_ill_conditioned limits: the
+share of lanes whose decisions agree (shade_light: facing, the material id
+and the light sample's texel; shade_bsdf: the lobe, alive and
+med_sampled; shade_env: the miss texel), at least 99.99%, and on those
+lanes the share of output values off by more than 1e-5 + 1e-5 |plain| (at
+most 0.2%), the count off by more than 1e-5 + 1e-4 |plain| (none), the
+share of lanes whose outputs are all bit-equal, and the largest absolute
+and relative difference. `within` says whether the limits hold. Prints
+one JSON line.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import re
 import subprocess
 import tempfile
+import time
 from collections import Counter
 from pathlib import Path
 
 import numpy as np
 import torch
 
-from ..models.material import Material
-from ..ops import shade
-from ..ops.sampling import sobol_all_dims
+from ..models.hdr import build_env_fetch, build_hdr_cache
+from ..models.material import Material, MaterialTable
+from ..models.scene import SceneData
+from ..ops import disney, envmap, shade
+from ..ops.microfacet import disney_fresnel, spec_and_sheen_color
+from ..ops.sampling import (_dot, cranley_patterson, onb, rand01,
+                            sample_ggx_vndf, sobol_all_dims, sobol_bounce_uv,
+                            to_local)
 from ..utils import nvcc
+from ..utils.config import RenderConfig
 from . import PEAK_FP32_FLOPS, PEAK_HBM_BYTES, cuda_ms, device_line, hbm_ms
 from .prep_kernels import _INSTR
 
 LANES = 131072
-# Bytes a lane moves at most (csrc/shade.cu's bound): shade_bsdf reads the
-# pixel id (8), 15 material fields (76), v, n, hit point, t, throughput
-# and radiance (64) and writes radiance, throughput, origin, direction,
-# alive, med_sampled and the pdf (54); a phase-sampled lane also reads its
-# direction and the medium's anisotropy (16 more). shade_nee reads facing
-# and the shadow hit (2) and reads and writes the radiance (24); a visible
-# lane also reads 12 material fields (56), v, n, the light's direction,
-# pdf and radiance and the throughput (64).
-LANE_BYTES = {"shade_bsdf": 202, "shade_bsdf_scatter": 218,
-              "shade_nee": 146, "shade_nee_hidden": 26}
+ENV_H, ENV_W = 128, 256     # the random environment's texels
+# Bytes a lane moves at most (csrc/shade.cu's bound), table rows apart:
+# shade_light reads the pixel id (8), origin, direction, t, the triangle id
+# and inside (33), and writes the hit point, normal, material id, light
+# direction, pdf, radiance and facing (57); its triangle's 19 floats of
+# tri_attr (76) and its texel's 6 floats (24) are counted once a row.
+# shade_bsdf reads the pixel id and material id (12), direction, n, hit
+# point, t, throughput and radiance (64) and writes radiance, throughput,
+# origin, direction, alive, med_sampled and the pdf (54); its material's
+# 15 fields (76, 4 more on a phase-sampled lane) once a row. shade_env
+# reads facing, the shadow hit, alive, the next hit and the radiance (22)
+# and writes the radiance (12); a visible light sample also reads the
+# material id, direction, n, light direction, pdf, radiance and the
+# throughput (68) and 14 material fields (56) once a row; a miss its new
+# direction, med_sampled, pdf and throughput (29) and its texel's 4 floats
+# (16) once a row; a hit its throughput (12), its triangle's material
+# (tri_attr row 18, 4) and that material's emission (12) once a row.
+LANE_BYTES = {"shade_light": 98, "tri_attr_row": 76, "texel_light": 24,
+              "shade_bsdf": 130, "material_bsdf": 76, "scatter": 4,
+              "shade_env": 34, "env_visible": 68, "material_nee": 56,
+              "env_miss": 29, "texel_miss": 16, "env_hit": 12,
+              "tri_attr_mat": 4, "emissive": 12}
 # tests/test_torch_shade.py's close_ill_conditioned: within ATOL + RTOL
 # |plain| on all but OFF_SHARE of the values, all within ATOL + RTOL_TAIL
 ATOL = RTOL = 1e-5
 RTOL_TAIL, OFF_SHARE = 1e-4, 2e-3
-KERNELS = ("shade_bsdf_kernel", "shade_nee_kernel")
+DECIDED = 0.9999        # decisions equal on at least this share of lanes
+KERNELS = ("shade_light_kernel", "shade_bsdf_kernel", "shade_env_kernel")
 FP32_OPS = {"FADD": 1, "FMUL": 1, "FADD32I": 1, "FMUL32I": 1, "FMNMX": 1,
             "MUFU": 1, "FFMA": 2, "FFMA32I": 2}
 
@@ -103,18 +128,46 @@ def bound_us(nbytes: int, ops: int) -> tuple[float, str]:
                (ops / PEAK_FP32_FLOPS * 1e6, "operations"))
 
 
+def lane_scene(tri_attr, env_fetch, hdr, hdr_cache, materials, env_angle,
+               env_intensity) -> SceneData:
+    """A SceneData of the tables the shading reads; the casts' fields are
+    empty."""
+    empty = torch.empty(0, device=tri_attr.device)
+    ax = lambda rows: tri_attr[rows].T.contiguous()
+    fields = {f.name: empty for f in dataclasses.fields(SceneData)}
+    fields.update(
+        p1=ax(slice(0, 3)), p2=ax(slice(3, 6)), p3=ax(slice(6, 9)),
+        n1=ax(slice(9, 12)), n2=ax(slice(12, 15)), n3=ax(slice(15, 18)),
+        mat_idx=tri_attr[18].to(torch.int32), materials=materials,
+        hdr_map=hdr, env_intensity=env_intensity, env_angle=env_angle,
+        tri_attr=tri_attr, env_fetch=env_fetch, hdr_cache=hdr_cache)
+    return SceneData(**fields)
+
+
 def random_lanes(r: int, seed: int, device) -> dict:
-    """Inputs of both halves for r lanes, drawn from `seed`: a material of
-    its own a lane that reaches every lobe and medium (metallic and
-    transmission at 0, 1 or between, ior 1.0-2.4, roughness down to 0,
-    anisotropic, every medium type, isotropic and forward phase
-    functions), unit view vectors with the normal facing them, light
-    samples half of them facing. The smoke launch's and the card tests'
-    lanes."""
+    """Inputs of the three kernels for r lanes, drawn from `seed`.
+
+    The scene: one triangle a lane (N = r, 1% degenerate, 0.5% with a
+    material id past the table), a material of its own a lane (M = r)
+    that reaches every lobe and medium (metallic and transmission at 0, 1
+    or between, ior 1.0-2.4, roughness down to 0, anisotropic, every
+    medium type, isotropic and forward phase functions, 30% emissive), a
+    random environment of ENV_H x ENV_W texels through the scene build's
+    own tables, env_angle in [-0.5, 1.5) and env_intensity in [0.5, 2).
+    The lanes: hits (`tri` a permutation, 1% of them -1; inside, t,
+    origin, a unit direction), and for the kernels alone the records the
+    kernel before each would give: a Surface (its hit's material id; a
+    normal facing the view; a light sample, half of them facing) and a
+    BsdfHalf (85% alive, a tenth of those phase-sampled), the shadow ray's
+    hit (30% blocked) and the bounce ray's (40% of them a miss). `mat` is
+    each lane's material, `v` = -direction and `shadow_hit`, as the plain
+    versions take them, and the Surface's fields are keys too. The smoke
+    launch's and the card tests' lanes."""
     rng = np.random.default_rng(seed)
     u = lambda *shape: rng.random(shape, dtype=np.float32)
+    n_tri = n_mat = max(r, 1)
 
-    def some(values, shape=(r,)):
+    def some(values, shape=(n_mat,)):
         """Each entry one of `values` (None: uniform in [0, 1))."""
         pick = rng.integers(0, len(values), shape)
         out = u(*shape)
@@ -123,37 +176,120 @@ def random_lanes(r: int, seed: int, device) -> dict:
                 out[pick == k] = val
         return out
 
-    def unit():
-        x = rng.normal(size=(r, 3)).astype(np.float32)
+    def unit(k=r):
+        x = rng.normal(size=(k, 3)).astype(np.float32)
         return x / np.maximum(np.linalg.norm(x, axis=1, keepdims=True), 1e-6)
 
-    v, nrm, l_dir = unit(), unit(), unit()
-    flip = np.sum(v * nrm, 1) < 0
-    nrm[flip] = -nrm[flip]
-    g = (1.8 * u(r) - 0.9).astype(np.float32)
-    g[rng.random(r) < 0.2] = 0.0   # the isotropic branch of sample_hg
-    mat = Material(
-        emissive=np.zeros((r, 3), np.float32), base_color=u(r, 3),
+    g = (1.8 * u(n_mat) - 0.9).astype(np.float32)
+    g[rng.random(n_mat) < 0.2] = 0.0   # the isotropic branch of sample_hg
+    emissive = u(n_mat, 3) * (rng.random((n_mat, 1)) < 0.3)
+    table = Material(
+        emissive=emissive.astype(np.float32), base_color=u(n_mat, 3),
         subsurface=some((0.0, None)), metallic=some((0.0, 1.0, None)),
-        specular=u(r), specular_tint=some((0.0, None)),
+        specular=u(n_mat), specular_tint=some((0.0, None)),
         roughness=some((0.0, 0.02, None)), anisotropic=some((0.0, None)),
-        sheen=some((0.0, None)), sheen_tint=u(r),
-        clearcoat=some((0.0, 1.0, None)), clearcoat_gloss=u(r),
-        ior=(1.0 + 1.4 * u(r)).astype(np.float32),
-        transmission=some((0.0, 1.0, None)), medium_color=u(r, 3),
-        medium_type=rng.integers(0, 4, r).astype(np.int32),
-        medium_density=(2.0 * u(r)).astype(np.float32),
+        sheen=some((0.0, None)), sheen_tint=u(n_mat),
+        clearcoat=some((0.0, 1.0, None)), clearcoat_gloss=u(n_mat),
+        ior=(1.0 + 1.4 * u(n_mat)).astype(np.float32),
+        transmission=some((0.0, 1.0, None)), medium_color=u(n_mat, 3),
+        medium_type=rng.integers(0, 4, n_mat).astype(np.int32),
+        medium_density=(2.0 * u(n_mat)).astype(np.float32),
         medium_anisotropy=g)
+
+    tri_attr = np.zeros((20, n_tri), np.float32)
+    tri_attr[0:9] = rng.normal(size=(9, n_tri))
+    flat = rng.random(n_tri) < 0.01
+    tri_attr[6:9, flat] = tri_attr[3:6, flat]     # p3 = p2: no area
+    tri_attr[9:18] = unit(3 * n_tri).reshape(n_tri, 9).T
+    tri_attr[18] = rng.permutation(n_mat)
+    tri_attr[18, rng.random(n_tri) < 0.005] = n_mat + 3
+    tri = rng.permutation(n_tri)[:r].astype(np.int32)
+    tri[rng.random(r) < 0.01] = -1
+
+    hdr = (4.0 * u(ENV_H, ENV_W, 3)).astype(np.float32)
+    cache = build_hdr_cache(hdr)
     t = lambda x: torch.as_tensor(x, device=device)
-    return dict(
-        mat=Material(*(t(f) for f in mat)), v=t(v), n=t(nrm),
-        hit_point=t(rng.normal(size=(r, 3)).astype(np.float32)),
-        direction=t(-v), t=t((0.01 + 3.0 * u(r)).astype(np.float32)),
+    scene = lane_scene(
+        t(tri_attr), t(build_env_fetch(hdr, cache)), t(hdr), t(cache),
+        MaterialTable(mat=Material(*(t(f) for f in table))),
+        t(np.float32(2.0 * rng.random() - 0.5)),
+        t(np.float32(0.5 + 1.5 * rng.random())))
+
+    direction = unit()
+    nrm = unit()
+    flip = np.sum(direction * nrm, 1) > 0
+    nrm[flip] = -nrm[flip]
+    l_dir = unit()
+    alive = rng.random(r) < 0.85
+    x = dict(
+        scene=scene, config=RenderConfig(), pid=t(rng.integers(
+            0, 2**32, r, dtype=np.int64)),
+        origin=t(rng.normal(size=(r, 3)).astype(np.float32)),
+        direction=t(direction), t=t((0.01 + 3.0 * u(r)).astype(np.float32)),
+        tri=t(tri), inside=t(rng.random(r) < 0.5),
         history=t(u(r, 3)), lo=t(u(r, 3)),
-        pid=t(rng.integers(0, 2**32, r, dtype=np.int64)),
-        l_dir=t(l_dir), light_pdf=t((0.01 + 4.0 * u(r)).astype(np.float32)),
-        light_fr=t(u(r, 3)), facing=t(np.sum(l_dir * nrm, 1) > 0),
-        shadow_hit=t(rng.random(r) < 0.3))
+        shadow_tri=t(np.where(rng.random(r) < 0.3,
+                              rng.integers(0, n_tri, r), -1).astype(np.int32)),
+        nxt_tri=t(np.where(rng.random(r) < 0.6,
+                           rng.integers(0, n_tri, r), -1).astype(np.int32)))
+    x["surface"] = shade.Surface(
+        hit_point=t(rng.normal(size=(r, 3)).astype(np.float32)), n=t(nrm),
+        mat_id=scene.material_ids(x["tri"]), l_dir=t(l_dir),
+        light_pdf=t((0.01 + 4.0 * u(r)).astype(np.float32)),
+        light_fr=t(u(r, 3)), facing=t(np.sum(l_dir * nrm, 1) > 0))
+    x["half"] = shade.BsdfHalf(
+        lo=t(u(r, 3)), history=t(u(r, 3)),
+        origin=t(rng.normal(size=(r, 3)).astype(np.float32)),
+        direction=t(unit()), alive=t(alive),
+        med_sampled=t(alive & (rng.random(r) < 0.1)),
+        pdf_for_mis=t((0.01 + 4.0 * u(r)).astype(np.float32)))
+    x.update(x["surface"]._asdict(),
+             mat=scene.materials.gather(x["surface"].mat_id),
+             v=-x["direction"], shadow_hit=x["shadow_tri"] >= 0)
+    return x
+
+
+def light_args(x, b, frame, config=None):
+    """shade_light's (and shade_light_plain's) arguments on lanes x."""
+    return (x["scene"], config or x["config"], b, frame, x["pid"],
+            x["origin"], x["direction"], x["t"], x["tri"], x["inside"])
+
+
+def bsdf_args(x, b, frame):
+    """shade_bsdf's arguments on lanes x."""
+    return (b, frame, sobol_all_dims(frame, device=x["pid"].device),
+            x["pid"], x["scene"].materials, x["surface"], x["direction"],
+            x["t"], x["history"], x["lo"])
+
+
+def bsdf_plain_args(x, b, frame):
+    """shade_bsdf_plain's arguments on lanes x."""
+    s = x["surface"]
+    return (b, frame, sobol_all_dims(frame, device=x["pid"].device),
+            x["pid"], x["mat"], x["v"], s.n, s.hit_point, x["direction"],
+            x["t"], x["history"], x["lo"])
+
+
+def env_args(x, config=None):
+    """shade_env's (and shade_env_plain's) arguments on lanes x."""
+    return (x["scene"], config or x["config"], x["surface"], x["direction"],
+            x["history"], x["half"], x["shadow_tri"], x["nxt_tri"])
+
+
+def miss_texels(scene, direction):
+    """The env_fetch row a bounce-miss direction reads
+    (env_radiance_pdf_nearest's)."""
+    u, v = envmap.to_spherical_uv(direction, scene.env_angle)
+    return envmap._texel_index(u, v, scene.hdr_map.shape[0],
+                               scene.hdr_map.shape[1])
+
+
+def light_texels(x, b, frame):
+    """The env_fetch row each lane's light sample reads
+    (env_sample_nearest's)."""
+    hh, ww = x["scene"].hdr_map.shape[0], x["scene"].hdr_map.shape[1]
+    return envmap._texel_index(rand01(x["pid"], frame, 8 * b),
+                               rand01(x["pid"], frame, 8 * b + 1), hh, ww)
 
 
 def agreement(pairs, same) -> dict:
@@ -187,6 +323,126 @@ def agreement(pairs, same) -> dict:
             "max_abs_err": abs_err, "max_rel_err": rel_err}
 
 
+def compare(x, b: int = 3, frame: int = 7) -> dict:
+    """{kernel: agreement with its plain version on lanes x, with
+    decisions_equal (the share of lanes whose decisions agree) and
+    `within`}. shade_light's decisions: facing, the material id and the
+    light sample's texel (its radiance bit-equal to the plain one's: one
+    texel gives the same float32 product, another a different one);
+    shade_bsdf's: the lobe, alive and med_sampled; shade_env's: the texel
+    of each bounce miss."""
+    got = shade.shade_light(*light_args(x, b, frame))
+    want = shade.shade_light_plain(*light_args(x, b, frame))
+    decided = {"shade_light": (got.facing == want.facing)
+               & (got.mat_id == want.mat_id)
+               & (got.light_fr == want.light_fr).all(1)}
+    pairs = {"shade_light": [(g, w) for g, w in zip(got, want)
+                             if g.dtype == torch.float32]}
+    half, lobe, _ = shade.shade_bsdf(*bsdf_args(x, b, frame), probes=True)
+    plain = shade.shade_bsdf_plain(*bsdf_plain_args(x, b, frame))
+    decided["shade_bsdf"] = ((half.alive == plain.alive)
+                             & (half.med_sampled == plain.med_sampled)
+                             & (lobe == plain_lobes(x, b, frame)))
+    pairs["shade_bsdf"] = [(g, w) for g, w in zip(half, plain)
+                           if g.dtype == torch.float32]
+    lo, texel = shade.shade_env(*env_args(x), probes=True)
+    h = x["half"]
+    miss = h.alive & (x["nxt_tri"] < 0)
+    want_texel = torch.where(miss, miss_texels(x["scene"], h.direction), -1)
+    decided["shade_env"] = texel.long() == want_texel
+    pairs["shade_env"] = [(lo, shade.shade_env_plain(*env_args(x)))]
+    out = {}
+    for name, same in decided.items():
+        row = {"decisions_equal": float(same.float().mean())
+               if same.numel() else 1.0,
+               **agreement(pairs[name], same)}
+        row["within"] = (row["decisions_equal"] >= DECIDED
+                         and row["values_off_share"] <= OFF_SHARE
+                         and row["values_off_tail"] == 0)
+        out[name] = row
+    return out
+
+
+def plain_lobes(x, b, frame):
+    """The lobe shade_bsdf_plain's disney_sample picks on each lane of x (0
+    diffuse, 1 clearcoat, 2 reflection, 3 refraction), from its own
+    functions."""
+    mat, v_world, n, pid = x["mat"], x["v"], x["n"], x["pid"]
+    u, vv = sobol_bounce_uv(sobol_all_dims(frame, device=n.device), b)
+    r1 = cranley_patterson(u, rand01(pid, frame, 8 * b + 2))
+    r2 = cranley_patterson(vv, rand01(pid, frame, 8 * b + 3))
+    r3 = rand01(pid, frame, 8 * b + 4)
+    eta = disney._eta_of(mat, v_world, n)
+    t, bt = onb(n)
+    v = to_local(t, bt, n, v_world)
+    spec_col, _ = spec_and_sheen_color(mat.base_color, mat.specular_tint,
+                                       mat.sheen_tint, mat.metallic, eta)
+    fresnel = disney_fresnel(mat.metallic, eta, v[..., 2], v[..., 2])
+    w_diff, _, _, w_coat = disney.lobe_weights(mat, eta, spec_col, fresnel)
+    cdf1 = w_diff + w_coat
+    r1_s = (r1 - cdf1) / torch.clamp(1.0 - cdf1, min=1e-6)
+    ax, ay = mat.alpha_xy()
+    h = sample_ggx_vndf(v, ax, ay, torch.clamp(r1_s, 0.0, 1.0), r2)
+    h = torch.where((h[..., 2] < 0.0)[..., None], -h, h)
+    vdoth = _dot(v, h)
+    f_pick = 1.0 - ((1.0 - disney_fresnel(mat.metallic, eta, vdoth, vdoth))
+                    * mat.transmission * (1.0 - mat.metallic))
+    spec = torch.where(r3 < f_pick, 2, 3)
+    return torch.where(r1 < w_diff, 0, torch.where(r1 < cdf1, 1, spec)) \
+        .to(torch.int8)
+
+
+def lane_bytes(x, b: int = 3, frame: int = 7) -> dict:
+    """{kernel: bytes its launch on lanes x moves}: LANE_BYTES a lane, and
+    each table row some lane reads once."""
+    scene, s, h = x["scene"], x["surface"], x["half"]
+    r = x["pid"].numel()
+    rows = lambda ids: int(torch.unique(ids).numel())
+    tri = x["tri"].clamp(0, scene.n_triangles - 1)
+    visible = s.facing & (x["shadow_tri"] < 0)
+    miss = h.alive & (x["nxt_tri"] < 0)
+    hit = h.alive & (x["nxt_tri"] >= 0)
+    plain = shade.shade_bsdf_plain(*bsdf_plain_args(x, b, frame))
+    b_ = LANE_BYTES
+    return {
+        "shade_light": (b_["shade_light"] * r + b_["tri_attr_row"] * rows(tri)
+                        + b_["texel_light"] * rows(light_texels(x, b, frame))),
+        "shade_bsdf": (b_["shade_bsdf"] * r
+                       + b_["material_bsdf"] * rows(s.mat_id)
+                       + b_["scatter"] * rows(s.mat_id[plain.med_sampled])),
+        "shade_env": (b_["shade_env"] * r
+                      + b_["env_visible"] * int(visible.sum())
+                      + b_["material_nee"] * rows(s.mat_id[visible])
+                      + b_["env_miss"] * int(miss.sum())
+                      + b_["texel_miss"] * rows(
+                          miss_texels(scene, h.direction[miss]))
+                      + b_["env_hit"] * int(hit.sum())
+                      + b_["tri_attr_mat"] * rows(x["nxt_tri"][hit])
+                      + b_["emissive"] * rows(
+                          scene.material_ids(x["nxt_tri"][hit])))}
+
+
+def _table(packed, mat) -> MaterialTable:
+    """The MaterialTable of `mat` whose packed table is `packed` itself, a
+    copy of its own: the timed launches read the copy hbm_ms hands them."""
+    table = MaterialTable(mat=mat)
+    table.__dict__["packed"] = packed   # functools.cached_property's slot
+    return table
+
+
+def wrapper_us(fn, repeats: int = 200) -> float:
+    """Host microseconds a call of fn() takes, the card running behind it:
+    a loop of calls timed on the host clock after one warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(repeats):
+        fn()
+    host = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return host / repeats * 1e6
+
+
 def run(device="cuda", lanes: int = LANES) -> dict:
     device = torch.device(device)
     if device.type != "cuda":
@@ -201,76 +457,79 @@ def run(device="cuda", lanes: int = LANES) -> dict:
             check=True, timeout=120).stdout)
     regs = ptxas(log)
 
+    b, frame = 3, 7
     x = random_lanes(lanes, 0, device)
-    sobol = sobol_all_dims(7, device=device)
-    mat = x["mat"]
-    names = ("pid", "v", "n", "hit_point", "direction", "t", "history", "lo",
-             "l_dir", "light_pdf", "light_fr", "facing", "shadow_hit")
-    inputs = tuple(mat) + tuple(x[k] for k in names)
+    scene, config = x["scene"], x["config"]
+    agree = compare(x, b, frame)
+    nbytes = lane_bytes(x, b, frame)
+    sobol = sobol_all_dims(frame, device=device)
+    packed = scene.materials.packed
 
-    def unpack(flat):
-        y = dict(zip(names, flat[len(mat):]))
-        return type(mat)(*flat[:len(mat)]), y
+    def on(tri_attr, env_fetch, table):
+        return dataclasses.replace(
+            scene, tri_attr=tri_attr, env_fetch=env_fetch,
+            materials=_table(table, scene.materials.mat))
 
-    def bsdf(*flat, kernel=True):
-        m, y = unpack(flat)
-        fn = shade.shade_bsdf if kernel else shade.shade_bsdf_plain
-        return fn(3, 7, sobol, y["pid"], m, y["v"], y["n"], y["hit_point"],
-                  y["direction"], y["t"], y["history"], y["lo"]).history
+    light_in = (x["pid"], x["origin"], x["direction"], x["t"], x["tri"],
+                x["inside"], scene.tri_attr, scene.env_fetch)
 
-    def nee(*flat, kernel=True):
-        m, y = unpack(flat)
-        fn = shade.shade_nee if kernel else shade.shade_nee_plain
-        return fn(m, y["v"], y["n"], y["l_dir"], y["light_pdf"],
-                  y["light_fr"], y["facing"], y["shadow_hit"], y["history"],
-                  y["lo"], True)
+    def light(pid, origin, direction, t, tri, inside, tri_attr, env_fetch,
+              kernel=True):
+        fn = shade.shade_light if kernel else shade.shade_light_plain
+        sc = dataclasses.replace(scene, tri_attr=tri_attr,
+                                 env_fetch=env_fetch)
+        return fn(sc, config, b, frame, pid, origin, direction, t, tri,
+                  inside).n
 
+    bsdf_in = (packed, x["pid"], *x["surface"], x["direction"], x["t"],
+               x["history"], x["lo"])
+
+    def bsdf(table, pid, *rest, kernel=True):
+        s, (direction, t, history, lo) = shade.Surface(*rest[:7]), rest[7:]
+        if kernel:
+            return shade.shade_bsdf(
+                b, frame, sobol, pid, _table(table, scene.materials.mat), s,
+                direction, t, history, lo).history
+        return shade.shade_bsdf_plain(
+            b, frame, sobol, pid, scene.materials.gather(s.mat_id),
+            -direction, s.n, s.hit_point, direction, t, history, lo).history
+
+    env_in = (scene.tri_attr, scene.env_fetch, packed, *x["surface"],
+              x["direction"], x["history"], *x["half"], x["shadow_tri"],
+              x["nxt_tri"])
+
+    def env(tri_attr, env_fetch, table, *rest, kernel=True):
+        fn = shade.shade_env if kernel else shade.shade_env_plain
+        s, (direction, history) = shade.Surface(*rest[:7]), rest[7:9]
+        h, (shadow_tri, nxt_tri) = shade.BsdfHalf(*rest[9:16]), rest[16:]
+        return fn(on(tri_attr, env_fetch, table), config, s, direction,
+                  history, h, shadow_tri, nxt_tri)
+
+    calls = {"shade_light": (shade.shade_light, light_args(x, b, frame)),
+             "shade_bsdf": (shade.shade_bsdf, bsdf_args(x, b, frame)),
+             "shade_env": (shade.shade_env, env_args(x))}
     out = {"device": device_line(), "lanes": lanes}
-    got = shade.shade_bsdf(3, 7, sobol, x["pid"], mat, x["v"], x["n"],
-                           x["hit_point"], x["direction"], x["t"],
-                           x["history"], x["lo"])
-    want = shade.shade_bsdf_plain(3, 7, sobol, x["pid"], mat, x["v"],
-                                  x["n"], x["hit_point"], x["direction"],
-                                  x["t"], x["history"], x["lo"])
-    same = (got.alive == want.alive) & (got.med_sampled == want.med_sampled)
-    agree = {
-        "shade_bsdf": {"decisions_equal": float(same.float().mean()),
-                       **agreement([(g, w) for g, w in zip(got, want)
-                                    if g.dtype == torch.float32], same)},
-        "shade_nee": {"decisions_equal": None,
-                      **agreement([(nee(*inputs), nee(*inputs, kernel=False))],
-                                  torch.ones_like(same))}}
-    for row in agree.values():
-        row["within"] = ((row["decisions_equal"] is None
-                          or row["decisions_equal"] >= 0.9999)
-                         and row["values_off_share"] <= OFF_SHARE
-                         and row["values_off_tail"] == 0)
-    scatter = int(want.med_sampled.sum())
-    visible = int((x["facing"] & ~x["shadow_hit"]).sum())
-    for name, fn, kernel, nbytes in (
-            ("shade_bsdf", bsdf, "shade_bsdf_kernel",
-             LANE_BYTES["shade_bsdf"] * lanes
-             + (LANE_BYTES["shade_bsdf_scatter"]
-                - LANE_BYTES["shade_bsdf"]) * scatter),
-            ("shade_nee", nee, "shade_nee_kernel",
-             LANE_BYTES["shade_nee_hidden"] * lanes
-             + (LANE_BYTES["shade_nee"]
-                - LANE_BYTES["shade_nee_hidden"]) * visible)):
+    for name, fn, inputs in (("shade_light", light, light_in),
+                             ("shade_bsdf", bsdf, bsdf_in),
+                             ("shade_env", env, env_in)):
+        kernel = f"{name}_kernel"
         us = hbm_ms(fn, inputs) * 1e3
         plain_ms = cuda_ms(lambda: fn(*inputs, kernel=False), repeats=5)
-        bound, by = bound_us(nbytes, ops[kernel] * lanes)
-        out[name] = {"us": us, "plain_ms": plain_ms, "bound_us": bound,
-                     "bound_by": by, "bytes": nbytes,
+        wrapper, args = calls[name]
+        host_us = wrapper_us(lambda: wrapper(*args))
+        bound, by = bound_us(nbytes[name], ops[kernel] * lanes)
+        out[name] = {"us": us, "wrapper_us": host_us, "plain_ms": plain_ms,
+                     "bound_us": bound, "bound_by": by,
+                     "bytes": nbytes[name],
                      "fp32_ops_per_lane": ops[kernel], **agree[name],
                      **regs.get(kernel, {})}
         row = out[name]
-        decided = ("decides nothing" if row["decisions_equal"] is None else
-                   f"alive and med_sampled equal on "
-                   f"{row['decisions_equal']:.6f} of the lanes")
-        print(f"shade_kernels: {name} {us:.2f} us at {lanes} lanes | bound "
-              f"{bound:.2f} us ({by}; {nbytes} bytes, {ops[kernel]} FP32 "
-              f"operations a lane) = {100 * bound / us:.1f}% | plain "
-              f"{plain_ms:.3f} ms | {regs.get(kernel)} | {decided}; there "
+        print(f"shade_kernels: {name} {us:.2f} us at {lanes} lanes, wrapper "
+              f"{host_us:.1f} us of host a call | bound {bound:.2f} us "
+              f"({by}; {nbytes[name]} bytes, {ops[kernel]} FP32 operations "
+              f"a lane) = {100 * bound / us:.1f}% | plain {plain_ms:.3f} ms "
+              f"| {regs.get(kernel)} | decisions equal on "
+              f"{row['decisions_equal']:.6f} of the lanes; there "
               f"{row['values_off_share']:.3g} of the values off by more than "
               f"1e-5, {row['values_off_tail']} by more than 1e-4 relative, "
               f"{row['lanes_bit_equal']:.6f} of the lanes bit-equal, max |d| "

@@ -31,13 +31,17 @@ Spans (the names are read by the benchmark and PERF.md):
   rt.cast.k1       the span-sweep kernel (ops/sweep.py::sweep)
   rt.cast.finish   the unsort, slice and slot2tri lookup of _swept
   rt.bounce        one _bounce / _bounce_brdf call of ops/integrator.py
-  rt.shade.surface surface_attributes (and the BRDF's onb)
+  rt.shade.surface surface_attributes (and the BRDF's onb); on the card
+                   (ops/shade.py's kernels) not opened: shade_light does it
   rt.shade.light   the NEE light sample; after the cast, its shadow-tested
-                   contribution (on the card the shade_nee kernel)
+                   contribution; on the card the shade_light kernel
+                   (surface and light sample, before the cast) alone
   rt.shade.bsdf    disney_sample + the media + disney_eval of the sampled
                    direction, or the shade_bsdf kernel (ops/shade.py; BRDF:
                    sample_brdf + brdf_evaluate)
-  rt.shade.env     after the cast, the MIS miss and the emissive pickup
+  rt.shade.env     after the cast, the MIS miss and the emissive pickup; on
+                   the card the shade_env kernel, which adds the NEE's
+                   contribution first
   rt.sync          each host <-> device sync of the render loop: the two
                    torch.nonzero calls of _bounce_loop
   rt.loss          parallel/autodiff.py::_batch_loss in _grads
@@ -62,9 +66,12 @@ Counters:
   bounces          bounces run (rt.bounce spans)
   bounce_lanes     live lanes at each bounce's start, summed
   syncs            rt.sync spans
-  shade_fused_lanes  lanes shaded by csrc/shade.cu's shade_bsdf kernel,
-                   counted at its launch (ops/shade.py); over bounce_lanes,
-                   the share of the bounces the kernels shaded
+  shade_light_lanes, shade_fused_lanes, shade_env_lanes  lanes shaded by
+                   csrc/shade.cu's shade_light, shade_bsdf and shade_env
+                   kernels, each counted at its launch (ops/shade.py); over
+                   bounce_lanes, the share of the bounces each kernel
+                   shaded: 1.0 in a forward pass on the card, 0 in a
+                   gradient step or on the CPU
   k1_spans_walked  (device) spans K1 walked, once per tile
                    (csrc/sweep.cu; sweep_plain on the CPU)
   cast_live_rays   (device) rays of the sweep's casts that are masked on
@@ -99,7 +106,8 @@ import torch
 from .config import resolve_device
 
 HOST_COUNTERS = ("casts", "cast_lanes", "cast_pairs", "bounces",
-                 "bounce_lanes", "syncs", "shade_fused_lanes")
+                 "bounce_lanes", "syncs", "shade_light_lanes",
+                 "shade_fused_lanes", "shade_env_lanes")
 DEVICE_COUNTERS = ("k1_spans_walked", "cast_live_rays", "k1a_pairs_tested")
 
 _ON = False                           # tracing(): the one test span() makes
