@@ -253,16 +253,21 @@ def cuda_ms(fn, repeats=REPEATS) -> float:
 
 
 def compare_records(got, want, slot2tri, label, min_hit_agree=0.9999,
-                    strict=False):
+                    strict=False, k2=False):
     """The sweep criterion on two (R, 8) records: hit/miss agreement, t to
     1e-4, the same triangle on >= 99.5% of common hits, inside equal where
     the triangle agrees; strict: every hit and triangle equal, t to 1e-6
     relative (the plain version's cuBLAS product may sum in another order
-    than the kernel's fmaf chain and round t 1 ulp apart). Returns
-    (max |t_got - t_want| over common hits, hit/miss agreement, triangle
-    agreement)."""
+    than the kernel's fmaf chain and round t 1 ulp apart). The slot lane
+    holds K1's int32 bits (ops/sweep.py::record_slots), or with k2 K2's
+    float32 value. Returns (max |t_got - t_want| over common hits, hit/miss
+    agreement, triangle agreement)."""
     import torch
-    gs, ws = got[:, 1].long(), want[:, 1].long()
+
+    from opengl_ray_tracing_framework_tpu_torch.ops.sweep import record_slots
+    slots = (lambda b: b[:, 1].long()) if k2 else \
+        (lambda b: record_slots(b).long())
+    gs, ws = slots(got), slots(want)
     gh, wh = gs >= 0, ws >= 0
     agree = (gh == wh).float().mean().item()
     if agree < min_hit_agree:
@@ -1609,7 +1614,8 @@ def main() -> int:
                                               tf)
             torch.cuda.synchronize()
             e, agree, tri_agree = compare_records(
-                got, want, slots, f"K2 {cast} round {i}", strict=strict)
+                got, want, slots, f"K2 {cast} round {i}", strict=strict,
+                k2=True)
             err = max(err, e)
         print(f"K2 cluster_intersect {cast}: {len(rounds)} rounds, each "
               f"held against the plain version | max |dt| {err:.3g}")

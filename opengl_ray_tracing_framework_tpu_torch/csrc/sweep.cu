@@ -49,6 +49,15 @@
 // through the same two buffers, every chunk folds into the keys, and the
 // keys are reduced and tested once per span (mt_span.cuh).
 //
+// A record's slot lane holds the hit's slot cid * T + k as an int32 by its
+// bits (ops/sweep.py::record_slots), so every slot up to 2^31 - 1 comes
+// back exact; a float32's value would name integers exactly only up to
+// 2^24 and round an odd slot past it to a neighbouring lane. Before any hit
+// the lane holds -1.0f, whose bits are a negative int32. The wrapper refuses
+// more than 2^31 - 1 slots, so cid * T + k and every other int product here
+// stays below 2^31; offsets into trifeat, spans, tile_sorted, rayfeat and
+// best are 64-bit.
+//
 // Tracing (utils/timing.py): a non-null `walked` makes CTA 0 of each tile's
 // cluster add the spans its walk visited, once per tile, with one atomicAdd
 // after the walk; null (tracing off) costs one uniform branch.
@@ -148,7 +157,7 @@ sweep_kernel(const __grid_constant__ CUtensorMap map,
     for (int i = 0; i < USED_ROWS; ++i) f[r][i] = rayfeat[ray * N_FEAT + i];
     const float* rec = best + ray * BEST_W;
     best_t[r] = rec[0];
-    best_slot[r] = static_cast<int>(rec[1]);
+    best_slot[r] = __float_as_int(rec[1]);   // an int32 by its bits; < 0: none
     best_in[r] = rec[2];
     cap[r] = rec[3];
     anyflag[r] = rec[4] > 0.5f;
@@ -229,7 +238,7 @@ sweep_kernel(const __grid_constant__ CUtensorMap map,
     for (int r = 0; r < RAYS_PER_THREAD; ++r) {
       float* rec = best + (ray0 + 32 * r) * BEST_W;
       rec[0] = best_t[r];
-      rec[1] = static_cast<float>(best_slot[r]);
+      rec[1] = __int_as_float(best_slot[r]);
       rec[2] = best_in[r];
     }
   }

@@ -104,7 +104,15 @@
 // sweep_spans add the (ray, cluster) member slab tests their warps make
 // (32 lanes, each with its KEY_RAYS or one ray, times the members of each
 // group a warp tests, in either of sweep_spans's paths), one atomicAdd
-// per CTA; group tests are not counted.
+// per CTA; group tests are not counted. A non-null `runs_tiles` makes
+// sweep_spans count the tiles that take the runs path, one atomicAdd by
+// each such CTA.
+//
+// Index arithmetic: offsets into the (G, C) outputs and the runs scratch,
+// the rays' rows and the boxes are 64-bit (G x C passes 2^31 at 2,048
+// tiles of ~1.05M clusters); a cluster or group index and the key
+// nearest * 128 + 127 are int32, which the wrappers keep below 2^30
+// (ops/sweep.py::MAX_KEY_CLUSTERS).
 //
 // Exactness: every step rounds as the eager torch version does on the
 // card. No fast math (utils/nvcc.py passes none): 1 / d is IEEE division,
@@ -786,7 +794,8 @@ sweep_spans_kernel(const float* __restrict__ origin,
                    float* __restrict__ rayfeat, float* __restrict__ best,
                    unsigned long long* runs,
                    unsigned long long* __restrict__ live_rays,
-                   unsigned long long* __restrict__ pairs_tested) {
+                   unsigned long long* __restrict__ pairs_tested,
+                   unsigned long long* __restrict__ runs_tiles) {
   extern __shared__ __align__(16) unsigned long long keys[];
   __shared__ __align__(16) Boxes boxes;
   __shared__ int warp_count[WARPS];
@@ -856,6 +865,7 @@ sweep_spans_kernel(const float* __restrict__ origin,
     } else {
       // more than the keys hold: the runs path (the members the culled
       // pass tested fold into far_bits again, alike)
+      if (runs_tiles != nullptr && t == 0) atomicAdd(runs_tiles, 1ULL);
       nf = sorted_runs(ray, live, warp_live, cl_min, cl_max, g_min, g_max,
                        c, base, spans, tile_sorted, runs, keys, boxes,
                        warp_count, far_bits, tested);
@@ -867,6 +877,8 @@ sweep_spans_kernel(const float* __restrict__ origin,
   if (pairs_tested != nullptr) count_pairs(pairs_tested, tested * 32);
   const float far = far_bits < 0 ? -INF : __int_as_float(far_bits);
   float4* rec = reinterpret_cast<float4*>(best + row * BEST_W);
+  // the slot lane: -1.0f, no hit (K1 keeps a slot there by its bits, and
+  // -1.0f's bits are a negative int32)
   rec[0] = make_float4(live ? INF : -INF, -1.0f, 0.0f, nextafterf(far, INF));
   rec[1] = make_float4(anyhit[src] ? 1.0f : 0.0f, 0.0f, 0.0f, 0.0f);
 }
@@ -941,8 +953,9 @@ extern "C" int sweep_key_launch(const float* origin, const float* direction,
 // f32, rayfeat (R, 16) f32, best (R, 8) f32, the last two 16-byte
 // aligned. live_rays: null, or a uint64 counter of the rays that are
 // masked on and enter some cluster; pairs_tested: null, or a uint64
-// counter of the member slab tests. Launches on `stream` and returns the
-// first CUDA error (0: launched).
+// counter of the member slab tests; runs_tiles: null, or a uint64 counter
+// of the tiles that take the runs path. Launches on `stream` and returns
+// the first CUDA error (0: launched).
 extern "C" int sweep_spans_launch(const float* origin, const float* direction,
                                   const bool* mask, const bool* anyhit,
                                   const long long* perm, const float* cl_min,
@@ -953,6 +966,7 @@ extern "C" int sweep_spans_launch(const float* origin, const float* direction,
                                   int n_clusters,
                                   unsigned long long* live_rays,
                                   unsigned long long* pairs_tested,
+                                  unsigned long long* runs_tiles,
                                   void* stream) {
   if (n_tiles <= 0) return static_cast<int>(cudaGetLastError());
   if (n_clusters < 1 || groups == nullptr || runs == nullptr)
@@ -964,6 +978,6 @@ extern "C" int sweep_spans_launch(const float* origin, const float* direction,
                        static_cast<cudaStream_t>(stream)>>>(
       origin, direction, mask, anyhit, perm, cl_min, cl_max, groups,
       groups + 3 * n_groups, n_clusters, nspan, spans, tile_sorted, rayfeat,
-      best, runs, live_rays, pairs_tested);
+      best, runs, live_rays, pairs_tested, runs_tiles);
   return static_cast<int>(cudaGetLastError());
 }

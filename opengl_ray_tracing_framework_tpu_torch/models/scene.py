@@ -195,7 +195,7 @@ class Scene:
 
         with timing.span("rt.build.bvh"):
             bvh = build_bvh(p1, p2, p3, leaf_size=leaf_size,
-                            method=bvh_method)
+                            method=bvh_method, device=resolve_device(device))
             perm = bvh.perm
             p1, p2, p3 = p1[perm], p2[perm], p3[perm]
             n1, n2, n3 = n1[perm], n2[perm], n3[perm]

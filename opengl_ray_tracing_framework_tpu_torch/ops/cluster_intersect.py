@@ -25,17 +25,19 @@ import torch
 
 from ..utils import nvcc
 from .intersect import INF
-from .sweep import BEST_W, MAX_BLOCK_TRIS, N_FEAT, TILE_R, intersect_span_plain
+from .sweep import (BEST_W, MAX_BLOCK_TRIS, N_FEAT, NO_SLOT, TILE_R,
+                    check_slots, intersect_span_plain)
 
-MAX_SLOTS = 1 << 24   # slot = c*T + k is kept in a float32: exact below 2^24
+MAX_SLOTS = 1 << 24   # slot = c*T + k is kept as a float32's value: exact
+                      # up to 2^24 (the sweep tracer keeps its bits)
 MAX_SPANS = 1 << 19   # span positions the kernel's (t, j, k) key can name
 
 
 def init_best(n_rays: int, device) -> torch.Tensor:
-    """Fresh best-hit records: t = INF, slot = -1, inside = 0."""
+    """Fresh best-hit records: t = INF, slot = NO_SLOT, inside = 0."""
     best = torch.zeros((n_rays, BEST_W), dtype=torch.float32, device=device)
     best[:, 0] = INF
-    best[:, 1] = -1.0
+    best[:, 1] = NO_SLOT
     return best
 
 
@@ -57,10 +59,9 @@ def _check_shapes(rayfeat, best, spans, nspan, trifeat):
             f"{tuple(best.shape)}, spans {tuple(spans.shape)}, nspan "
             f"{tuple(nspan.shape)}, trifeat {tuple(trifeat.shape)} do not "
             "fit together")
-    if c * t_blk > MAX_SLOTS:
-        raise ValueError(
-            f"cluster_intersect: {c} clusters of {t_blk} slots exceed the "
-            f"{MAX_SLOTS} slots a float32 record can name")
+    check_slots("cluster_intersect", c, t_blk, MAX_SLOTS,
+                "; the sweep tracer (cast_backend 'sweep') names up to "
+                "2^31 - 1")
     return g, k, r // g, c, t_blk
 
 

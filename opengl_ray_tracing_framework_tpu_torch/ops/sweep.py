@@ -53,6 +53,11 @@ from .sampling import _cross
 TILE_R = 128          # rays per kernel tile; csrc/mt_span.cuh agrees
 N_FEAT = 16           # ray feature vector [o, d, o x d, 1, 0 x 6]
 BEST_W = 8            # record [t, slot, inside, cap, anyhit, 0, 0, 0]
+NO_SLOT = -1.0        # a record's slot before any hit: as int32 bits, < 0
+MAX_SLOTS = (1 << 31) - 1   # slots (C x T) whose ids K1's records name:
+                            # the slot lane holds an int32 by its bits
+MAX_KEY_CLUSTERS = 1 << 23  # clusters the coherence key names below
+                            # _DEAD_KEY (nearest * 128 + 127 < 2^30)
 EPS_ROW = 10          # trifeat row carrying E in the A-group columns
 MAX_BLOCK_TRIS = 4096  # widest cluster block the kernels take (a 12-bit
                        # lane in their keys); csrc/mt_span.cuh agrees
@@ -136,12 +141,31 @@ def _span_lists(origin, direction, mask, cl_min, cl_max):
 # ---------------------------------------------------------------------------
 
 
-def intersect_span_plain(rf, trifeat, cid, rec):
+def check_slots(fn, c, t_blk, limit=MAX_SLOTS, beyond=""):
+    """Raise ValueError when c clusters of t_blk slots are more than
+    `limit` slots, the most a kernel's records can name (`beyond`: what
+    the message adds)."""
+    if c * t_blk > limit:
+        raise ValueError(
+            f"{fn}: {c} clusters of {t_blk} slots ({c * t_blk}) exceed the "
+            f"{limit} slots its records can name{beyond}")
+
+
+def record_slots(best):
+    """The slot lane of K1's records best (..., 8) f32 as an int32 view
+    (writes go through): a hit's slot c * T + k by its bits, exact up to
+    MAX_SLOTS; before any hit the bits of NO_SLOT, a negative int32."""
+    return best.view(torch.int32)[..., 1]
+
+
+def intersect_span_plain(rf, trifeat, cid, rec, slot_bits=False):
     """One span of the cluster kernels in plain torch (csrc/mt_span.cuh):
     ray tiles rf (n, TR, 16) against the cluster blocks trifeat[cid] (cid
     (n,) int64), folded into the tiles' records rec (n, TR, 8) in place:
     [t, slot, inside] are lowered where the span holds a strictly closer
-    hit; the lowest lane wins inside a span."""
+    hit; the lowest lane wins inside a span. The slot goes in as its int32
+    bits (slot_bits: K1's records, record_slots) or as its float32 value
+    (K2's, exact up to 2^24 slots)."""
     t_blk = trifeat.shape[2] // 4
     lane = torch.arange(t_blk, device=rf.device)
     tf = trifeat[cid]                                   # (n, 16, 4T)
@@ -160,9 +184,14 @@ def intersect_span_plain(rf, trifeat, cid, rec):
     k = torch.amin(torch.where(tmat <= tmin[..., None], lane, t_blk), dim=2)
     a_win = torch.gather(a, 2, torch.clamp(k, max=t_blk - 1)[..., None])
     better = (tmin < INF) & (tmin < rec[..., 0])
-    slot = (cid[:, None] * t_blk + k).to(torch.float32)
+    slot = cid[:, None] * t_blk + k
     rec[..., 0] = torch.where(better, tmin, rec[..., 0])
-    rec[..., 1] = torch.where(better, slot, rec[..., 1])
+    if slot_bits:
+        held = record_slots(rec)
+        held.copy_(torch.where(better, slot.to(torch.int32), held))
+    else:
+        rec[..., 1] = torch.where(better, slot.to(torch.float32),
+                                  rec[..., 1])
     rec[..., 2] = torch.where(better, (a_win[..., 0] > 0.0).float(),
                               rec[..., 2])
     return rec
@@ -193,10 +222,11 @@ def sweep_plain(nspan, spans, tile_sorted, rayfeat, best, trifeat):
     while active.numel():
         visited[active] += 1
         rec = intersect_span_plain(rf[active], trifeat,
-                                   spans[active, j].long(), best[active])
+                                   spans[active, j].long(), best[active],
+                                   slot_bits=True)
         best[active] = rec
         # stop test (csrc/sweep.cu): occluded any-hit rays are not live
-        live_t = torch.where((rec[..., 4] > 0.5) & (rec[..., 1] >= 0.0),
+        live_t = torch.where((rec[..., 4] > 0.5) & (record_slots(rec) >= 0),
                              -INF, rec[..., 0])
         thresh = torch.amax(torch.minimum(live_t, rec[..., 3]), dim=1)
         if j + 1 >= c:
@@ -236,17 +266,18 @@ def sweep(nspan, spans, tile_sorted, rayfeat, best, trifeat):
     """The span-sweep kernel: csrc/sweep.cu for CUDA tensors (best is
     updated in place and returned), sweep_plain for CPU tensors. Same
     contract as sweep_plain; the kernel takes cluster blocks of up to
-    MAX_BLOCK_TRIS triangles and raises ValueError beyond.
-    `sweep.launches` counts kernel launches. While utils/timing.py's
-    tracing is on the kernel adds the spans it walks (once per tile) to
-    the device counter k1_spans_walked."""
+    MAX_BLOCK_TRIS triangles, and both versions at most MAX_SLOTS slots:
+    beyond, ValueError. `sweep.launches` counts kernel launches. While
+    utils/timing.py's tracing is on the kernel adds the spans it walks
+    (once per tile) to the device counter k1_spans_walked."""
     dev = rayfeat.device
+    g, c = spans.shape
+    t_blk = trifeat.shape[2] // 4
+    check_slots("sweep", trifeat.shape[0], t_blk)
     if dev.type == "cpu":
         return sweep_plain(nspan, spans, tile_sorted, rayfeat, best, trifeat)
     if dev.type != "cuda":
         raise NotImplementedError(f"the sweep kernel has no {dev} version")
-    g, c = spans.shape
-    t_blk = trifeat.shape[2] // 4
     want = {
         "nspan": (nspan, torch.int32, (g,)),
         "spans": (spans, torch.int32, (g, c)),
@@ -287,7 +318,7 @@ def _smoke(device):
     rayfeat = torch.rand((TILE_R, N_FEAT), generator=gen).to(device)
     trifeat = torch.rand((1, N_FEAT, 32), generator=gen).to(device)
     best = torch.zeros((TILE_R, BEST_W), device=device)
-    best[:, 0], best[:, 1], best[:, 3] = INF, -1.0, INF
+    best[:, 0], best[:, 1], best[:, 3] = INF, NO_SLOT, INF
     nspan = torch.ones(1, dtype=torch.int32, device=device)
     spans = torch.zeros((1, 1), dtype=torch.int32, device=device)
     tile_sorted = torch.zeros((1, 1), device=device)
@@ -327,8 +358,8 @@ def sweep_spans_plain(origin, direction, mask, anyhit, perm, cl_min,
     but trifeat: nspan (G,) i32, spans (G, C) i32 cluster ids nearest
     first (a stable sort of the tile minima), tile_sorted (G, C) f32 their
     tile entry distances, rayfeat (R, 16) f32 and best (R, 8) f32 records
-    [INF or -INF (masked), -1, 0, cap, anyhit, 0, 0, 0], all in kernel
-    order. The rays that are masked on and enter some cluster (a cap of at
+    [INF or -INF (masked), NO_SLOT, 0, cap, anyhit, 0, 0, 0], all in
+    kernel order. The rays that are masked on and enter some cluster (a cap of at
     least 0) go to utils/timing.py's device counter cast_live_rays while
     tracing is on."""
     sweep_spans_plain.calls += 1
@@ -343,7 +374,7 @@ def sweep_spans_plain(origin, direction, mask, anyhit, perm, cl_min,
     best = torch.zeros((origin.shape[0], BEST_W), dtype=torch.float32,
                        device=origin.device)
     best[:, 0] = torch.where(mask, INF, -INF)   # masked rays never update
-    best[:, 1] = -1.0
+    best[:, 1] = NO_SLOT
     best[:, 3] = cap
     best[:, 4] = anyhit.float()
     return (nspan, order.to(torch.int32), tile_sorted.contiguous(),
@@ -379,7 +410,7 @@ def _declare_prep(lib):
     lib.sweep_key_launch.restype = ctypes.c_int
     lib.sweep_spans_launch.argtypes = ([ctypes.c_void_p] * 14
                                        + [ctypes.c_int] * 2
-                                       + [ctypes.c_void_p] * 3)
+                                       + [ctypes.c_void_p] * 4)
     lib.sweep_spans_launch.restype = ctypes.c_int
     for name, want in (("tile_rays", TILE_R), ("group", CULL_GROUP)):
         if getattr(lib, f"sweep_prep_{name}")() != want:
@@ -449,14 +480,18 @@ group_boxes.launches = 0
 def sweep_key(origin, direction, mask, cl_min, cl_max, groups):
     """The coherence key of each ray: csrc/sweep_prep.cu's sweep_key on a
     CUDA tensor (any cluster count: it stages the group boxes in chunks),
-    sweep_key_plain on a CPU tensor; the same (R,) int32 values, which
-    hold nearest * 128 + 127 for up to 2^24 clusters, as JAX's _sort_key.
+    sweep_key_plain on a CPU tensor; the same (R,) int32 values, as JAX's
+    _sort_key: nearest * 128 + 127 stays below _DEAD_KEY for up to
+    MAX_KEY_CLUSTERS clusters, and both versions raise ValueError beyond.
     `groups`: group_boxes(cl_min, cl_max), which the kernel culls its slab
     tests with (one cast's two kernels share them; the plain version does
     not read them). `sweep_key.launches` counts kernel launches. While
     utils/timing.py's tracing is on, the kernel adds its member slab tests
     to the device counter k1a_pairs_tested."""
     dev = _prep_device("sweep_key", origin, cl_min)
+    if cl_min.shape[0] > MAX_KEY_CLUSTERS:
+        raise ValueError(f"sweep_key: {cl_min.shape[0]} clusters; the key "
+                         f"names at most {MAX_KEY_CLUSTERS}")
     if dev.type == "cpu":
         return sweep_key_plain(origin, direction, mask, cl_min, cl_max)
     r, c = origin.shape[0], cl_min.shape[0]
@@ -492,7 +527,8 @@ def sweep_spans(origin, direction, mask, anyhit, perm, cl_min, cl_max,
     values. `sweep_spans.launches` counts kernel launches. While
     utils/timing.py's tracing is on, the kernel adds the rays that are
     masked on and enter some cluster to the device counter cast_live_rays,
-    and its member slab tests to k1a_pairs_tested."""
+    its member slab tests to k1a_pairs_tested and the tiles that take the
+    runs path to k1a_runs_tiles."""
     dev = _prep_device("sweep_spans", origin, cl_min)
     if dev.type == "cpu":
         return sweep_spans_plain(origin, direction, mask, anyhit, perm,
@@ -526,7 +562,8 @@ def sweep_spans(origin, direction, mask, anyhit, perm, cl_min, cl_max,
         nspan.data_ptr(), spans.data_ptr(), tile_sorted.data_ptr(),
         rayfeat.data_ptr(), best.data_ptr(), runs.data_ptr(), g, c,
         timing.device_counter("cast_live_rays", dev),
-        timing.device_counter("k1a_pairs_tested", dev), stream))
+        timing.device_counter("k1a_pairs_tested", dev),
+        timing.device_counter("k1a_runs_tiles", dev), stream))
     sweep_spans.launches += 1
     return nspan, spans, tile_sorted, rayfeat, best
 
@@ -589,8 +626,9 @@ def sweep_inputs(scene, origin, direction, mask, anyhit):
     one tile) that put them in kernel order. On a CUDA tensor group_boxes,
     then sweep_key, one torch.sort and sweep_spans, whatever the cluster
     count; on a CPU tensor their plain versions. A span rt.cast.prep; the
-    padded R goes to the counter cast_lanes and R x C (the ray x cluster
-    pairs each preparation kernel covers) to cast_pairs."""
+    padded R goes to the counter cast_lanes, R x C (the ray x cluster
+    pairs each preparation kernel covers) to cast_pairs and C x T (the
+    slots K1's records name) to cast_slots."""
     with timing.span("rt.cast.prep"):
         origin, direction, mask, anyhit = pad_cast(origin, direction, mask,
                                                    anyhit)
@@ -599,6 +637,7 @@ def sweep_inputs(scene, origin, direction, mask, anyhit):
         c = cl_min.shape[0]
         timing.count("cast_lanes", r)
         timing.count("cast_pairs", r * c)
+        timing.count("cast_slots", c * scene.cl_trifeat.shape[2] // 4)
 
         groups = group_boxes(cl_min, cl_max)   # both kernels take them
         perm = None
@@ -620,7 +659,7 @@ def _swept(scene, origin, direction, mask, anyhit) -> Hit:
         r_in = origin.shape[0]
         best = best[:r_in]
         t = torch.where(mask, best[:, 0], INF)
-        slot = torch.where(mask, best[:, 1].to(torch.int32), -1)
+        slot = torch.where(mask, record_slots(best), -1)
         slot2tri = scene.cl_slot2tri
         tri = torch.where(
             slot >= 0,

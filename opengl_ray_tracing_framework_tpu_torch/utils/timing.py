@@ -63,6 +63,9 @@ Counters:
                    x the scene's C (the pairs each of sweep_key and
                    sweep_spans covers; their group boxes leave
                    k1a_pairs_tested slab tests in all)
+  cast_slots       the cluster slots a cast's records can name: the
+                   scene's C x T (ops/sweep.py, K1's slot lane; the
+                   schedule tracer's float32 lane names up to 2^24)
   bounces          bounces run (rt.bounce spans)
   bounce_lanes     live lanes at each bounce's start, summed
   syncs            rt.sync spans
@@ -86,6 +89,9 @@ Counters:
                    counted); over 2 x cast_pairs, the share of the
                    all-pairs slab test left. 0 on the CPU, whose plain
                    versions test every pair
+  k1a_runs_tiles   (device) tiles that sweep_spans sends down its runs
+                   path (the (G, C) scratch), one atomicAdd by each such
+                   CTA; 0 on the CPU, whose plain version has no such path
 
 pass_breakdown (the `--timing` flag) runs `repeats` real render_pass calls
 under tracing() and reports each span's host time a pass, total and self
@@ -105,10 +111,11 @@ import torch
 
 from .config import resolve_device
 
-HOST_COUNTERS = ("casts", "cast_lanes", "cast_pairs", "bounces",
-                 "bounce_lanes", "syncs", "shade_light_lanes",
+HOST_COUNTERS = ("casts", "cast_lanes", "cast_pairs", "cast_slots",
+                 "bounces", "bounce_lanes", "syncs", "shade_light_lanes",
                  "shade_fused_lanes", "shade_env_lanes")
-DEVICE_COUNTERS = ("k1_spans_walked", "cast_live_rays", "k1a_pairs_tested")
+DEVICE_COUNTERS = ("k1_spans_walked", "cast_live_rays", "k1a_pairs_tested",
+                   "k1a_runs_tiles")
 
 _ON = False                           # tracing(): the one test span() makes
 _NULL = contextlib.nullcontext()      # span() while tracing is off

@@ -13,9 +13,12 @@ every output, on the 81,922-triangle scene in blocks of 256, 512, 1,024,
 sphere at 7 subdivisions in blocks of 16 (29,442: group boxes in two
 chunks of 512), at C = 1, 45, 8,192 and one more, every tile minimum
 finite (sorted runs in global scratch, merged by rank), and at 3 x 8,192
-+ 5, the cases aimed at the group-box cull (_prep_culled), and the whole
-merged cast on the 14,172 clusters against the plain versions; the group
-boxes (sweep_groups) against group_boxes_plain;
++ 5, the cases aimed at the group-box cull (_prep_culled), with the tiles
+that take the runs path counted (k1a_runs_tiles), and the whole merged
+cast on the 14,172 clusters against the plain versions; the group
+boxes (sweep_groups) against group_boxes_plain; a cast on the normal
+path over 65,600 clusters of 256 (slots past 2^24) against the plain
+reference's triangle ids;
 the chained lookups (K4c-2,
 csrc/probe_gather.cu) on tables whose columns differ and the block sums
 (K4c-3, csrc/probe_stream.cu) for one and many rows of starts, and the
@@ -469,6 +472,7 @@ def test_prep_kernels_equal_plain(case, loong_scale_scene):
                 _, tests, fell_back = _culled_pairs(
                     o, d, mask, torch.arange(n, device=dev), lo, hi)
                 assert rec.counters["k1a_pairs_tested"] == tests > 0
+                assert rec.counters["k1a_runs_tiles"] == fell_back
                 assert fell_back == {"culled: some tiles fall back": 32,
                                      "every minimum finite": 63}.get(
                     case, 0 if lo.shape[0] <= 4096 else fell_back)
@@ -566,13 +570,105 @@ def test_swept_pair_past_the_shared_memory(loong_scale_scene):
         *tsweep.sweep_spans_plain(o, d, m, a, perm, lo, hi),
         scene.cl_trifeat)
     best = torch.empty_like(best).index_copy_(0, perm, best)[:mask.shape[0]]
-    slot = torch.where(mask, best[:, 1], -1.0).long()
+    slot = torch.where(mask, tsweep.record_slots(best), -1).long()
     tri = torch.where(slot >= 0, scene.cl_slot2tri[slot.clamp(min=0)], -1)
     got = torch.cat([torch.stack([h.t, h.tri.float(), h.inside.float()], 1)
                      for h in (hit_a, hit_c)])
     want = torch.stack([torch.where(mask, best[:, 0], tsweep.INF),
                         tri.float(), (mask & (best[:, 2] > 0.5)).float()], 1)
     _assert_same_records(got, want, "pair, 14,172 clusters", min_hits=0.2)
+
+
+GRID_CLUSTERS = 65600   # clusters of 256: slots up to 16,793,599 > 2^24
+
+
+def _grid_soup(n_clusters):
+    """(p1, p2, p3) (N, 3) float32 of a flat grid in the plane z = 0: patch
+    j a unit square at (j % 256, j // 256) cut into 16 x 8 quads, each two
+    triangles facing +z, triangle 256 j + k lane k of patch j. Every
+    coordinate is exact in float32."""
+    j = np.arange(n_clusters)[:, None]
+    q = np.arange(128)[None, :]
+    x0 = (j % 256 + (q % 16) / 16.0).astype(np.float32)
+    y0 = (j // 256 + (q // 16) / 8.0).astype(np.float32)
+    z = np.zeros_like(x0)
+    a, b, c, d = (np.stack([x0 + dx, y0 + dy, z], -1)
+                  for dx, dy in ((0, 0), (0.0625, 0), (0, 0.125),
+                                 (0.0625, 0.125)))
+    return tuple(np.stack(pair, 2).reshape(-1, 3)
+                 for pair in ((a, b), (b, d), (c, c)))
+
+
+def _grid_clusters(p1, p2, p3):
+    """The port's clusters (models/clusters.py::build_clusters) of the
+    grid, one a patch: a BVH in heap order whose leaves are the patches
+    (leaf C + j holds triangles [256 j, 256 j + 256))."""
+    from opengl_ray_tracing_framework_tpu_torch.models.bvh import FlatBVH
+    from opengl_ray_tracing_framework_tpu_torch.models.clusters import (
+        build_clusters)
+    c = p1.shape[0] // 256
+    n = 2 * c
+    inner = np.arange(1, c)
+    left, right = np.zeros(n, np.int32), np.zeros(n, np.int32)
+    left[inner], right[inner] = 2 * inner, 2 * inner + 1
+    count, first = np.zeros(n, np.int32), np.zeros(n, np.int32)
+    count[c:], first[c:] = 256, 256 * np.arange(c)
+    box_lo, box_hi = np.zeros((n, 3), np.float32), np.zeros((n, 3),
+                                                             np.float32)
+    box_lo[c:] = np.minimum(np.minimum(p1, p2), p3).reshape(c, 256, 3).min(1)
+    box_hi[c:] = np.maximum(np.maximum(p1, p2), p3).reshape(c, 256, 3).max(1)
+    bvh = FlatBVH(left, right, count, first, box_lo, box_hi,
+                  np.arange(p1.shape[0], dtype=np.int32))
+    return build_clusters(bvh, p1, p2, p3, max_tris=256)
+
+
+@pytest.mark.cuda
+def test_cast_past_2_24_slots_names_every_triangle():
+    """A cast on the normal path (closest_hit_swept: K1(a), the sort, K1,
+    _swept's decode) over 65,600 clusters of 256 (16,793,600 triangles,
+    slots past 2^24): every one of 20,480 rays, 16,384 of them down
+    through a triangle of the last 64 clusters (slots 2^24 and up, half
+    of them odd) and 4,096 through random triangles, gets exactly the
+    triangle id of the plain reference's BlockCaster. A float32's value
+    would round each odd slot past 2^24 to the next lane."""
+    from benchmark.reference.cast import Caster
+    from benchmark.reference.cast_blocks import BlockCaster
+    dev = _card()
+    p = _grid_soup(GRID_CLUSTERS)
+    cl = _grid_clusters(*p)
+    assert cl.n_clusters == GRID_CLUSTERS and cl.block_tris == 256
+    assert np.array_equal(cl.slot2tri, np.arange(256 * GRID_CLUSTERS))
+    t = lambda x: torch.as_tensor(x).to(dev)
+    scene = SimpleNamespace(cl_aabb_min=t(cl.aabb_min),
+                            cl_aabb_max=t(cl.aabb_max),
+                            cl_trifeat=t(cl.trifeat),
+                            cl_slot2tri=t(cl.slot2tri))
+    del cl
+    rng = np.random.default_rng(24)
+    tri = np.concatenate([np.arange(256 * (GRID_CLUSTERS - 64),
+                                    256 * GRID_CLUSTERS),
+                          rng.integers(0, 256 * GRID_CLUSTERS, 4096)])
+    cent = (p[0][tri].astype(np.float64) + p[1][tri] + p[2][tri]) / 3.0
+    origin = t((cent + [0.0, 0.0, 1.0]).astype(np.float32))
+    direction = t(np.tile(np.float32([[0.0, 0.0, -1.0]]), (tri.size, 1)))
+    launches, calls = tsweep.sweep.launches, tsweep.sweep_plain.calls
+    hit = tsweep.closest_hit_swept(scene, origin, direction)
+    assert (tsweep.sweep.launches, tsweep.sweep_plain.calls) == \
+        (launches + 1, calls)
+    got = hit.tri.long().cpu()
+    del scene
+    torch.cuda.empty_cache()
+    want = BlockCaster.of(Caster(*(t(x) for x in p))).closest_hit(
+        origin, direction)[1].cpu()
+    assert torch.equal(want, torch.as_tensor(tri))   # down through tri
+    wrong = got != want
+    odd_past = (want % 2 == 1) & (want >= 1 << 24)
+    assert not wrong.any(), (
+        f"{int(wrong.sum())} of {tri.size} triangle ids wrong, "
+        f"{int((wrong & odd_past).sum())} of the {int(odd_past.sum())} "
+        f"odd slots past 2^24; first: {got[wrong][:4].tolist()} for "
+        f"{want[wrong][:4].tolist()}")
+    assert int(odd_past.sum()) >= 8192
 
 
 @pytest.mark.cuda

@@ -388,7 +388,8 @@ def test_group_box_covers_its_members(boxes, kind, cull_boxes):
 def test_k1a_pairs_tested_stays_zero_on_the_cpu():
     """Under tracing() on the CPU a cast (here of 8,193 clusters) runs
     the plain versions, which test every pair and count none in
-    k1a_pairs_tested; cast_pairs still counts R x C."""
+    k1a_pairs_tested and have no runs path (k1a_runs_tiles 0); cast_pairs
+    still counts R x C and cast_slots C x T."""
     from types import SimpleNamespace
 
     from opengl_ray_tracing_framework_tpu_torch.utils import timing
@@ -402,5 +403,7 @@ def test_k1a_pairs_tested_stays_zero_on_the_cpu():
         tsweep.sweep_inputs(scene, o, d, mask, anyhit)
     assert c == 8193
     assert rec.counters["k1a_pairs_tested"] == 0
+    assert rec.counters["k1a_runs_tiles"] == 0
     assert rec.counters["cast_pairs"] == 256 * c
+    assert rec.counters["cast_slots"] == c
 

@@ -122,11 +122,13 @@ def test_build_spans_and_cast_counters_only_when_tracing():
     c = scene.cl_aabb_min.shape[0]
     assert rec.counters["casts"] > 0
     assert rec.counters["cast_pairs"] == rec.counters["cast_lanes"] * c
+    assert rec.counters["cast_slots"] == rec.counters["casts"] * c * 256
 
 
 def test_cast_pairs_counts_padded_rays_times_clusters():
     """Each cast adds its rays, padded to whole 128-ray tiles, times the
-    scene's clusters to cast_pairs."""
+    scene's clusters to cast_pairs, and the scene's slots (clusters x
+    block width) to cast_slots."""
     _, scene = build_test_scene(2, device="cpu")
     c = scene.cl_aabb_min.shape[0]
     origin, direction = _rays(300, 2)
@@ -134,4 +136,5 @@ def test_cast_pairs_counts_padded_rays_times_clusters():
         tsweep.closest_hit_swept(scene, origin, direction)
         tsweep.closest_hit_swept(scene, origin[:100], direction[:100])
     assert rec.counters["cast_pairs"] == (384 + 128) * c
+    assert rec.counters["cast_slots"] == 2 * c * 256
     assert np.isfinite(c)
